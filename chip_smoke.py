@@ -4,22 +4,37 @@
 Phases (any failure raises; the exit code is then nonzero):
   0. require CUDA; print the card (nvidia-smi name, power limit) and the
      torch / CUDA versions;
-  1. build the Hamming best-2 kernel from openmavis_tpu_torch/csrc/;
-  2. hold the kernel against its plain PyTorch version on the card, exact
-     equality, on the reference package's matcher test cases and the main
-     path's shapes (16,384 x 512 with a window/level mask, 512 x 512
-     mutual through the transposed mask); time the wrapper (packing +
-     kernel), the kernel alone on packed words and the plain version at
-     the main-path shapes with CUDA events;
+  1. build the two Hamming best-2 kernels (mask form `hamming_best2`,
+     factor form `projection_best2`) from openmavis_tpu_torch/csrc/;
+  2. hold every entry point against its plain PyTorch version on the card,
+     exact equality on all three outputs: the reference package's matcher
+     test cases, ragged, sliced and odd-offset storage, every mask layout
+     (rows, transposed, neither), more than one target tile, the main
+     path's shapes (16,384 x 512 map -> frame, 512 x 512 mutual), and for
+     the factor form per-row radius, the window's edge, NaN and inf
+     projections, all-invalid sides; the factor form also against the mask
+     form on the mask built from the same factors. Then time, at the
+     main-path shapes, each wrapper (CUDA events), each kernel alone (a
+     CUDA graph of 20 calls, and one call on a cold L2), each plain
+     version, and `matcher.match_projection` by the mask route against
+     the factor route; print each beside its bound;
   3. drive the port's StreamingVITracker over the flagship scene (4x
      KannalaBrandt8 at 640x480, 4 x 512 ORB features x 8 levels, 400 Hz
      IMU, 160 frames, 1.25 orbits, loop closing off) and check tracking,
-     IMU initialization, ATE and that the matches went through the kernel.
+     IMU initialization, ATE and that the matches went through both
+     kernels (launch counts per entry point, reset just before the run).
 
 Prints the kernel table as one JSON line, the main-path result as one JSON
 line, and last {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py   (from the repository root, one GPU)
+     python3 chip_smoke.py --kernels-only   stops after phase 2 (a quick
+     check of the kernels; it prints no {"ok": ...} line)
+     python3 chip_smoke.py --main-path-runs N   drives phase 3 N times in
+     one process (the run-to-run spread of its content and times)
+     python3 chip_smoke.py --variants DIR   instead of the phases: builds
+     each DIR/*.cu in place of the kernel source, checks it and times it
+     beside the package's own source
 """
 
 import json
@@ -63,106 +78,501 @@ def cuda_time_ms(fn, reps: int = REPS, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def kernel_cases(torch, dev):
-    """(name, d1, d2, mask) cases: the reference matcher tests plus the
-    main path's shapes."""
-    def desc(rng, n):
-        return torch.as_tensor((rng.rand(n, 256) > 0.5).astype(np.int8),
-                               device=dev)
+def graph_time_ms(fn, calls: int = 20, reps: int = REPS) -> float:
+    """Per-call DEVICE time of fn(): `calls` calls captured into one CUDA
+    graph and replayed, so that no host work (Python, ctypes, the
+    allocator) lies between the kernels. Median over `reps` replays."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
 
+
+def cold_time_ms(fn, reps: int = 30) -> float:
+    """Time of one fn() call that finds the L2 cache cold: 256 MB are
+    written between calls (the L2 holds 50 MB). One event pair per call."""
+    import torch
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _desc(torch, dev, rng, n):
+    return torch.as_tensor((rng.rand(n, 256) > 0.5).astype(np.int8),
+                           device=dev)
+
+
+def _odd_offset(torch, x):
+    """The same values in storage that starts one byte (element) off any
+    alignment, as a view."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def kernel_cases(torch, dev):
+    """(name, d1, d2, mask) cases of the mask form: the reference
+    matcher tests, ragged and unaligned storage, every mask layout."""
     cases = []
     rng = np.random.RandomState(0)
-    d1, d2 = desc(rng, 96), desc(rng, 200)
+    d1, d2 = _desc(torch, dev, rng, 96), _desc(torch, dev, rng, 200)
     cases.append(("96x200", d1, d2,
                   torch.as_tensor(rng.rand(96, 200) > 0.3, device=dev)))
     rng = np.random.RandomState(1)
-    d1, d2 = desc(rng, 130), desc(rng, 517)
-    cases.append(("130x517", d1, d2,
-                  torch.as_tensor(rng.rand(130, 517) > 0.5, device=dev)))
+    d1, d2 = _desc(torch, dev, rng, 130), _desc(torch, dev, rng, 517)
+    m130 = torch.as_tensor(rng.rand(130, 517) > 0.5, device=dev)
+    cases.append(("130x517", d1, d2, m130))
+    cases.append(("517x130_T", d2, d1, m130.T))
+    cases.append(("130x517_odd_offset", _odd_offset(torch, d1),
+                  _odd_offset(torch, d2), _odd_offset(torch, m130)))
+    cases.append(("517x130_T_odd_offset", d2, d1,
+                  _odd_offset(torch, m130).T))
+    wide = torch.as_tensor(rng.rand(260, 1040) > 0.5, device=dev)
+    cases.append(("130x517_sliced", d1, d2, wide[:130, 5:522]))
+    cases.append(("130x517_gather", d1, d2, wide[::2, 3::2][:, :517]))
     cases.append(("all_masked", torch.zeros((64, 256), dtype=torch.int8,
                                             device=dev),
                   torch.ones((64, 256), dtype=torch.int8, device=dev),
                   torch.zeros((64, 64), dtype=torch.bool, device=dev)))
     rng = np.random.RandomState(2)
-    d1 = desc(rng, 8)
+    d1 = _desc(torch, dev, rng, 8)
     tie = torch.ones((8, 32), dtype=torch.bool, device=dev)
     tie[:, :3] = False
     cases.append(("tie_break", d1, d1[:1].repeat(32, 1), tie))
+    # three target tiles under a sparse mask: a row's keys rest in the
+    # outputs between tiles
+    rng = np.random.RandomState(3)
+    d1, d2 = _desc(torch, dev, rng, 300), _desc(torch, dev, rng, 1500)
+    sparse = torch.as_tensor(rng.rand(300, 1500) > 0.995, device=dev)
+    cases.append(("300x1500_sparse", d1, d2, sparse))
+    cases.append(("1500x300_sparse_T", d2, d1, sparse.T))
     return cases
 
 
-def main_path_mask(torch, dev, n: int = 16384, m: int = 512):
-    """A map->frame admissibility mask as match_projection builds it:
-    valid landmarks (a quarter of the slab) x valid features, 15 px
-    window, predicted level +-1."""
-    from openmavis_tpu_torch.frontend import matcher
+def main_path_factors(torch, dev, n: int = 16384, m: int = 512):
+    """The operands of one map->frame `match_projection` call as
+    `_match_bank` makes it: a quarter of the landmark slab valid, 95% of
+    the features valid, 15 px window, predicted level +-1, and planted
+    near-copies so that the best matches are realistic (< TH_HIGH).
+    Returns the nine arguments of `projection_best2` in order."""
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    proj = torch.rand((n, 2), generator=g, device=dev) * torch.tensor(
-        [640.0, 480.0], device=dev)
-    feat = torch.rand((m, 2), generator=g, device=dev) * torch.tensor(
-        [640.0, 480.0], device=dev)
-    lq = torch.randint(0, 8, (n,), generator=g, device=dev)
-    lf = torch.randint(0, 8, (m,), generator=g, device=dev)
+    size = torch.tensor([640.0, 480.0], device=dev)
+    proj = torch.rand((n, 2), generator=g, device=dev) * size
+    feat = torch.rand((m, 2), generator=g, device=dev) * size
+    lq = torch.randint(0, 8, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    lf = torch.randint(0, 8, (m,), generator=g, device=dev,
+                       dtype=torch.int32)
     vq = torch.rand(n, generator=g, device=dev) < 0.25
     vf = torch.rand(m, generator=g, device=dev) < 0.95
-    mask = (vq[:, None] & vf[None, :] & matcher.window_mask(proj, feat, 15.0)
-            & matcher.level_mask(lq, lf))
     d2 = (torch.rand((m, 256), generator=g, device=dev) > 0.5).to(
         torch.int8)
-    # plant near-copies so the best matches are realistic (< TH_HIGH)
     src = torch.randint(0, m, (n,), generator=g, device=dev)
     flip = torch.rand((n, 256), generator=g, device=dev) < 0.1
     d1 = torch.where(flip, 1 - d2[src], d2[src])
-    return d1, d2, mask
+    # half of the live landmarks project next to the feature they copy
+    near = torch.rand(n, generator=g, device=dev) < 0.5
+    jitter = (torch.rand((n, 2), generator=g, device=dev) - 0.5) * 16.0
+    proj = torch.where(near[:, None], feat[src] + jitter, proj)
+    lq = torch.where(near, lf[src], lq)
+    return proj, lq, 15.0, d1, vq, feat, lf, d2, vf
+
+
+def factors_mask(mc, args):
+    """The [N, M] mask that `projection_best2_plain` builds from its
+    factors."""
+    from openmavis_tpu_torch.frontend import matcher
+    proj, lq, radius, _, vq, feat, lf, _, vf = args
+    return (vq[:, None] & vf[None, :]
+            & matcher.window_mask(proj, feat, radius)
+            & matcher.level_mask(lq, lf))
+
+
+def projection_cases(torch, dev):
+    """(name, args) cases of the factor form beside the main-path one."""
+    def make(seed, n, m, radius=40.0, p_vq=0.7, p_vf=0.9):
+        rng = np.random.RandomState(seed)
+        size = np.array([160.0, 120.0], np.float32)
+        t = lambda x: torch.as_tensor(x, device=dev)
+        return [t((rng.rand(n, 2) * size).astype(np.float32)),
+                t(rng.randint(0, 8, n).astype(np.int32)), radius,
+                _desc(torch, dev, rng, n), t(rng.rand(n) < p_vq),
+                t((rng.rand(m, 2) * size).astype(np.float32)),
+                t(rng.randint(0, 8, m).astype(np.int32)),
+                _desc(torch, dev, rng, m), t(rng.rand(m) < p_vf)]
+
+    cases = [("300x200", make(10, 300, 200)),
+             ("1x64", make(11, 1, 64, p_vq=1.1)),
+             ("130x517", make(12, 130, 517)),
+             ("400x1500_three_tiles", make(13, 400, 1500, radius=12.0))]
+    a = make(14, 300, 200)
+    a[2] = torch.as_tensor(np.random.RandomState(14).uniform(
+        5.0, 60.0, 300).astype(np.float32), device=dev)
+    cases.append(("per_row_radius", a))
+    a = make(15, 300, 200)
+    a[2] = torch.tensor(25.0, device=dev)
+    cases.append(("radius_0dim_tensor", a))
+    # on integer coordinates: features exactly `radius` away (not
+    # admitted: strict <) and features half a pixel inside (admitted)
+    a = make(16, 64, 64, radius=15.0, p_vq=1.1, p_vf=1.1)
+    a[5] = torch.floor(a[5])
+    a[0] = a[5].clone()
+    a[0][:32, 0] += 15.0
+    a[0][32:, 1] += 14.5
+    # levels 3 apart: query i can only take feature i
+    a[1] = a[6] = torch.arange(64, dtype=torch.int32, device=dev) * 3
+    cases.append(("window_edge", a))
+    a = make(17, 300, 200)
+    a[0][::3, 0] = float("nan")
+    a[0][1::7, 1] = float("inf")
+    a[0][2::11, 0] = float("-inf")
+    cases.append(("nan_inf_projections", a))
+    a = make(18, 300, 200)
+    a[4] = torch.zeros_like(a[4])
+    cases.append(("all_queries_invalid", a))
+    a = make(19, 300, 200)
+    a[8] = torch.zeros_like(a[8])
+    cases.append(("all_features_invalid", a))
+    a = make(20, 130, 517)
+    a[3], a[7] = _odd_offset(torch, a[3]), _odd_offset(torch, a[7])
+    cases.append(("130x517_odd_offset", a))
+    return cases
+
+
+def _exact(torch, what, got, ref) -> int:
+    torch.cuda.synchronize()
+    for g_, r_, field in zip(got, ref, ("best_idx", "best", "second")):
+        if g_.dtype != torch.int32 or g_.shape != r_.shape:
+            raise AssertionError(f"{what}.{field}: {g_.dtype} "
+                                 f"{tuple(g_.shape)}")
+        err = int((g_.to(torch.int64) - r_.to(torch.int64)).abs().max()) \
+            if g_.numel() else 0
+        if err != 0:
+            raise AssertionError(f"{what}.{field}: max abs err {err}")
+    return 0
+
+
+def _bound_ms(nbytes: int, bit_ops: int):
+    """(bound_ms, bound_by): bytes over 3.35 TB/s against XOR/popcount
+    bit operations over the card's 1,979 TOP/s integer peak."""
+    t_bytes = nbytes / 3.35e12 * 1e3
+    t_ops = bit_ops / 1.979e15 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_kernel(torch, dev, mc):
-    """Kernel vs plain, exact, on every case; times at main-path shapes."""
+    """Every entry point against its plain version, exactly, on every
+    case; then times at the main-path shapes. Returns the two kernels'
+    records for the `kernels` line."""
+    from openmavis_tpu_torch.frontend import matcher, orb
+
+    # ---- mask form -----------------------------------------------------
     cases = kernel_cases(torch, dev)
-    d1, d2, mask = main_path_mask(torch, dev)
+    args = main_path_factors(torch, dev)
+    d1, d2 = args[3], args[7]
+    mask = factors_mask(mc, args)
     cases.append(("map16384x512", d1, d2, mask))
     rng = np.random.RandomState(4)
-    s1 = torch.as_tensor((rng.rand(512, 256) > 0.5).astype(np.int8),
-                         device=dev)
+    s1 = _desc(torch, dev, rng, 512)
     s2 = torch.where(torch.as_tensor(rng.rand(512, 256) < 0.1, device=dev),
                      1 - s1, s1)[torch.randperm(512, device=dev)]
     smask = torch.as_tensor(rng.rand(512, 512) > 0.02, device=dev)
+    cases.append(("mutual512", s1, s2, smask))
     cases.append(("mutual512_T", s2, s1, smask.T))
-    worst = 0
     for name, a, b, mk in cases:
-        got = mc.masked_best2_fused(a, b, mk)
         ref = mc.masked_best2_plain(a, b, mk)
-        torch.cuda.synchronize()
-        for g_, r_, what in zip(got, ref, ("best_idx", "best", "second")):
-            err = int((g_.to(torch.int64) - r_.to(torch.int64)).abs().max())
-            worst = max(worst, err)
-            if err != 0:
-                raise AssertionError(f"kernel != plain on {name}.{what}: "
-                                     f"max abs err {err}")
-        print(f"kernel case {name}: exact ({a.shape[0]}x{b.shape[0]})")
+        _exact(torch, f"hamming_best2 {name}",
+               mc.masked_best2_fused(a, b, mk), ref)
+        _exact(torch, f"hamming_best2 packed {name}",
+               mc.launch_packed(orb.pack_bits(a), orb.pack_bits(b), mk), ref)
+        print(f"hamming_best2 case {name}: exact from planes and from "
+              f"words ({a.shape[0]}x{b.shape[0]}, mask strides "
+              f"{tuple(mk.stride())})")
+
+    # ---- factor form ---------------------------------------------------
+    pcases = [("map16384x512", list(args))] + projection_cases(torch, dev)
+    for name, a in pcases:
+        ref = mc.projection_best2_plain(*a)
+        _exact(torch, f"projection_best2 {name}", mc.projection_best2(*a),
+               ref)
+        mk = factors_mask(mc, a)
+        _exact(torch, f"projection_best2 vs hamming_best2 {name}",
+               mc.projection_best2(*a), mc.masked_best2_fused(a[3], a[7], mk))
+        print(f"projection_best2 case {name}: exact against plain and "
+              f"against hamming_best2 on the built mask "
+              f"({a[3].shape[0]}x{a[7].shape[0]}, "
+              f"{int(mk.any(1).sum())} rows with a candidate, "
+              f"{int(mk.sum())} admissible pairs)")
+    edge = dict(pcases)["window_edge"]
+    got = mc.projection_best2(*edge)
+    if int((got[1][:32] < 300).sum()) != 0 or \
+            int((got[1][32:] < 300).sum()) != 32:
+        raise AssertionError("window edge: a feature at exactly `radius` "
+                             "must not be admitted, one inside it must")
+
+    # match_projection end to end (kernel route against plain route), and
+    # its peak memory: no [N, M] array may appear
+    def before_style(a):
+        return mask_route_match_projection(*a, max_dist=matcher.TH_HIGH,
+                                           ratio=0.9)
+
+    new = matcher.match_projection(*args, max_dist=matcher.TH_HIGH,
+                                   ratio=0.9)
+    old = before_style(args)
+    cpu = matcher.match_projection(
+        *[x.cpu() if isinstance(x, torch.Tensor) else x for x in args],
+        max_dist=matcher.TH_HIGH, ratio=0.9)
+    for g_, o_, c_ in zip(new, old, cpu):
+        if not (torch.equal(g_, o_) and torch.equal(g_.cpu(), c_)):
+            raise AssertionError("match_projection: kernel route differs "
+                                 "from the mask route or from the CPU")
+    n_matched = int((new[0] >= 0).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    matcher.match_projection(*args, max_dist=matcher.TH_HIGH, ratio=0.9)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    n, m = mask.shape
+    print(f"match_projection {n}x{m}: {n_matched} matches, equal on the "
+          f"kernel route, the mask route and the CPU; peak memory of one "
+          f"call {peak} B (a bool mask would take {n * m} B)")
+    if peak >= n * m // 4:
+        raise AssertionError(f"match_projection allocated {peak} B")
+
+    # ---- times ---------------------------------------------------------
+    vq, vf = args[4], args[8]
+    live = int(vq.sum())
+    rows_hit = int(mask.any(1).sum())
+    pairs = int(mask.sum())
+    q, w = orb.pack_bits(d1), orb.pack_bits(d2)
+    sq, sw = orb.pack_bits(s2), orb.pack_bits(s1)
+    t = {"live_rows": live, "live_row_share": live / n,
+         "rows_with_a_candidate": rows_hit, "admissible_pairs": pairs}
+    # in turns: plain, wrapper, device-only, wrapper, plain
+    for key, fused, plain, packed in (
+            ("mask_map", lambda: mc.masked_best2_fused(d1, d2, mask),
+             lambda: mc.masked_best2_plain(d1, d2, mask),
+             lambda: mc.launch_packed(q, w, mask)),
+            ("mask_mutual_T", lambda: mc.masked_best2_fused(s2, s1, smask.T),
+             lambda: mc.masked_best2_plain(s2, s1, smask.T),
+             lambda: mc.launch_packed(sq, sw, smask.T)),
+            ("mask_mutual", lambda: mc.masked_best2_fused(s1, s2, smask),
+             lambda: mc.masked_best2_plain(s1, s2, smask),
+             lambda: mc.launch_packed(sw, sq, smask)),
+            ("proj_map", lambda: mc.projection_best2(*args),
+             lambda: mc.projection_best2_plain(*args), None)):
+        runs = [cuda_time_ms(plain), cuda_time_ms(fused),
+                graph_time_ms(fused), cuda_time_ms(fused),
+                cuda_time_ms(plain)]
+        t[f"{key}_plain_ms"] = (runs[0] + runs[4]) / 2
+        t[f"{key}_wrapper_ms"] = (runs[1] + runs[3]) / 2
+        t[f"{key}_kernel_only_ms"] = runs[2]
+        t[f"{key}_kernel_cold_ms"] = cold_time_ms(fused)
+        if packed is not None:
+            t[f"{key}_kernel_only_packed_ms"] = graph_time_ms(packed)
+    runs = [cuda_time_ms(lambda: before_style(args)),
+            cuda_time_ms(lambda: matcher.match_projection(
+                *args, max_dist=matcher.TH_HIGH, ratio=0.9)),
+            cuda_time_ms(lambda: matcher.match_projection(
+                *args, max_dist=matcher.TH_HIGH, ratio=0.9)),
+            cuda_time_ms(lambda: before_style(args))]
+    t["match_projection_mask_route_ms"] = (runs[0] + runs[3]) / 2
+    t["match_projection_factor_route_ms"] = (runs[1] + runs[2]) / 2
+
+    # bounds from this run's inputs: every byte the function needs, once
+    mfeat = int(vf.numel())
+    bytes_mask = {"mask": n * m, "query planes (rows with a candidate)":
+                  rows_hit * 256, "target planes": m * 256,
+                  "outputs": n * 12}
+    bytes_proj = {"valid_query": n, "xy, level of live rows": live * 12,
+                  "query planes (rows with a candidate)": rows_hit * 256,
+                  "features (planes, xy, level, valid)": mfeat * 269,
+                  "outputs": n * 12}
+    sm = int(smask.numel())
+    bytes_mut = {"mask": sm, "query planes": 512 * 256,
+                 "target planes": 512 * 256, "outputs": 512 * 12}
+    b_mask, by_mask = _bound_ms(sum(bytes_mask.values()), pairs * 512)
+    b_proj, by_proj = _bound_ms(sum(bytes_proj.values()), pairs * 512)
+    b_mut, by_mut = _bound_ms(sum(bytes_mut.values()),
+                              int(smask.sum()) * 512)
+    t.update(mask_map_bound_ms=b_mask, proj_map_bound_ms=b_proj,
+             mask_mutual_bound_ms=b_mut, mask_map_bytes=bytes_mask,
+             proj_map_bytes=bytes_proj, mask_mutual_bytes=bytes_mut)
+    print("kernel times at 16,384 x 512 and 512 x 512 (ms per call; "
+          "wrapper = cuda events around 10 back-to-back calls, median of "
+          "%d; kernel_only = 20 calls in one CUDA graph, median of %d "
+          "replays; cold = one call after 256 MB were written): %s"
+          % (REPS, REPS, json.dumps(t)))
+    for key, bound in (("mask_map", b_mask), ("mask_mutual", b_mut),
+                       ("mask_mutual_T", b_mut), ("proj_map", b_proj)):
+        print("%-14s wrapper %8.2f us  kernel alone %7.2f us  cold %7.2f us"
+              "  plain %8.2f us  bound %6.3f us"
+              % (key, t[f"{key}_wrapper_ms"] * 1e3,
+                 t[f"{key}_kernel_only_ms"] * 1e3,
+                 t[f"{key}_kernel_cold_ms"] * 1e3,
+                 t[f"{key}_plain_ms"] * 1e3, bound * 1e3))
+    print("match_projection at %d x %d, %d live rows (%.1f%%): mask built "
+          "by torch + mask kernel %.2f us, factor kernel route %.2f us"
+          % (n, m, live, 100.0 * live / n,
+             t["match_projection_mask_route_ms"] * 1e3,
+             t["match_projection_factor_route_ms"] * 1e3))
+    common = {"route": "cuda",
+              "source": "openmavis_tpu_torch/csrc/hamming_best2.cu",
+              "replaces": "openmavis_tpu/frontend/matcher_pallas.py:123",
+              "max_abs_err": 0, "library_ms": None,
+              "shape": f"{n}x{m}"}
+    return [
+        dict(common, name="hamming_best2", ms=t["mask_map_wrapper_ms"],
+             kernel_only_ms=t["mask_map_kernel_only_ms"],
+             plain_ms=t["mask_map_plain_ms"], bound_ms=b_mask,
+             bound_by=by_mask,
+             mutual512_T_ms=t["mask_mutual_T_wrapper_ms"],
+             mutual512_T_kernel_only_ms=t["mask_mutual_T_kernel_only_ms"],
+             mutual512_plain_ms=t["mask_mutual_T_plain_ms"],
+             mutual512_bound_ms=b_mut),
+        dict(common, name="projection_best2", ms=t["proj_map_wrapper_ms"],
+             kernel_only_ms=t["proj_map_kernel_only_ms"],
+             plain_ms=t["proj_map_plain_ms"], bound_ms=b_proj,
+             bound_by=by_proj)]
+
+
+def mask_route_match_projection(proj_xy, pred_level, radius, d_query,
+                                valid_query, feat_xy, feat_level, feat_desc,
+                                feat_valid, max_dist=100, ratio=1.0):
+    """`matcher.match_projection` as it ran before the factor kernel:
+    the [N, M] window and level masks built by torch ops, then the mask
+    kernel. Kept here as the yardstick of the factor route."""
+    from openmavis_tpu_torch.frontend import matcher
+    mk = (matcher.window_mask(proj_xy, feat_xy, radius)
+          & matcher.level_mask(pred_level, feat_level))
+    return matcher.match_nn(d_query, valid_query, feat_desc, feat_valid,
+                            max_dist=max_dist, ratio=ratio, mutual=False,
+                            extra_mask=mk)
+
+
+def match_bank_times(torch, dev, tr, images, reps: int = 20) -> dict:
+    """The tracking stage `_match_bank` (4 cameras: projection, matching,
+    dedup) on the run's final map and last frame, host clock around a
+    synchronize, median of `reps`: the factor route as the port runs it,
+    and the mask route swapped in for comparison, in turns."""
+    from openmavis_tpu_torch.frontend import matcher
+    from openmavis_tpu_torch.pipeline import multi_tracking as mt
+    step, m, c = tr._step, tr.map, tr.carry
+    bank = step.extract_bank(
+        torch.as_tensor(np.asarray(images)).to(dev).to(torch.float32))
+    radius = torch.tensor(step.cfg.match_radius, device=dev)
+
+    def run():
+        return mt._match_bank(m, bank, c.R, c.p, step.rig.kind, step.C,
+                              step.rig, step.W, step.H, radius,
+                              step.min_last_of(c))
+
+    def timed():
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts)), out
+
+    factor_route = matcher.match_projection
+    res = {}
+    try:
+        a, out_new = timed()
+        matcher.match_projection = mask_route_match_projection
+        b, out_old = timed()
+        b2, _ = timed()
+        matcher.match_projection = factor_route
+        a2, _ = timed()
+    finally:
+        matcher.match_projection = factor_route
+    if not all(torch.equal(x, y) for x, y in zip(out_new, out_old)):
+        raise AssertionError("_match_bank differs between the two routes")
+    res["factor_route_ms"] = (a + a2) / 2
+    res["mask_route_ms"] = (b + b2) / 2
+    res["landmarks_valid"] = int(m.mp_valid.sum())
+    res["matched"] = int(out_new[1].sum())
+    return res
+
+
+def compare_variants(torch, dev, mc, directory: str) -> None:
+    """Build every *.cu under `directory` in place of the package's
+    kernel source, hold each exactly against the plain versions at the
+    main-path shapes and time it alone (CUDA graph), beside the package's
+    own source, twice, in turns (there and back). For trying out a change
+    to the kernels inside one call on one card."""
+    import glob
+    from pathlib import Path
     from openmavis_tpu_torch.frontend import orb
-    t = {}
-    for shape, a, b, mk in (("map", d1, d2, mask),
-                            ("mutual", s2, s1, smask.T)):
-        q, w = orb.pack_bits(a), orb.pack_bits(b)
-        # in turns: plain, wrapper, kernel alone, wrapper, plain
-        runs = [cuda_time_ms(fn) for fn in (
-            lambda: mc.masked_best2_plain(a, b, mk),
-            lambda: mc.masked_best2_fused(a, b, mk),
-            lambda: mc.launch_packed(q, w, mk),
-            lambda: mc.masked_best2_fused(a, b, mk),
-            lambda: mc.masked_best2_plain(a, b, mk))]
-        t[f"{shape}_plain_ms"] = (runs[0] + runs[4]) / 2
-        t[f"{shape}_ms"] = (runs[1] + runs[3]) / 2
-        t[f"{shape}_kernel_only_ms"] = runs[2]
-        n, m = mk.shape
-        # bytes the kernel must read and write: mask, packed words, outputs
-        nbytes = n * m + (n + m) * 32 + n * 12
-        t[f"{shape}_kernel_GBps"] = nbytes / (runs[2] * 1e-3) / 1e9
-    print("kernel times (ms per call, median of %d batches of 10; wrapper "
-          "= packing + kernel): %s" % (REPS, json.dumps(t)))
-    return worst, t
+    args = main_path_factors(torch, dev)
+    d1, d2, mask = args[3], args[7], factors_mask(mc, args)
+    rng = np.random.RandomState(4)
+    s1 = _desc(torch, dev, rng, 512)
+    s2 = torch.where(torch.as_tensor(rng.rand(512, 256) < 0.1, device=dev),
+                     1 - s1, s1)[torch.randperm(512, device=dev)]
+    smask = torch.as_tensor(rng.rand(512, 512) > 0.02, device=dev)
+    dense = torch.ones_like(mask)
+    q, w = orb.pack_bits(d1), orb.pack_bits(d2)
+    fns = {
+        "mask_map": (lambda: mc.masked_best2_fused(d1, d2, mask),
+                     mc.masked_best2_plain(d1, d2, mask)),
+        "mask_map_packed": (lambda: mc.launch_packed(q, w, mask),
+                            mc.masked_best2_plain(d1, d2, mask)),
+        "mask_map_dense": (lambda: mc.masked_best2_fused(d1, d2, dense),
+                           mc.masked_best2_plain(d1, d2, dense)),
+        "mask_mutual": (lambda: mc.masked_best2_fused(s1, s2, smask),
+                        mc.masked_best2_plain(s1, s2, smask)),
+        "mask_mutual_T": (lambda: mc.masked_best2_fused(s2, s1, smask.T),
+                          mc.masked_best2_plain(s2, s1, smask.T)),
+        "proj_map": (lambda: mc.projection_best2(*args),
+                     mc.projection_best2_plain(*args))}
+    one = torch.zeros(1, device=dev)
+    print("launch floor (a 1-element add_ in the same graph harness): "
+          "%.2f us" % (graph_time_ms(lambda: one.add_(1)) * 1e3))
+    own = mc._SRC
+    sources = [own] + [Path(f).resolve() for f in
+                       sorted(glob.glob(os.path.join(directory, "*.cu")))]
+    try:
+        for src in sources + sources[::-1]:
+            mc._SRC, mc._lib = src, None
+            mc.build()
+            res = {}
+            for key, (fn, ref) in fns.items():
+                _exact(torch, f"{src.name} {key}", fn(), ref)
+                res[key + "_us"] = round(graph_time_ms(fn) * 1e3, 2)
+            print("variant %s%s: %s" % (
+                src.name, " (the package's)" if src == own else "",
+                json.dumps(res)), flush=True)
+    finally:
+        mc._SRC, mc._lib = own, None
 
 
 def phase_main_path(torch, dev, mc, card: str):
@@ -188,7 +598,7 @@ def phase_main_path(torch, dev, mc, card: str):
                                          device=dev)
     frame_ms = []
     torch.cuda.synchronize()
-    mc.launches = 0
+    mc.reset_launch_counts()
     for i in range(N_FRAMES):
         t, b = batches[i]
         t1 = time.perf_counter()
@@ -196,7 +606,9 @@ def phase_main_path(torch, dev, mc, card: str):
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
     launches = mc.launches
+    by_entry = dict(mc.launches_by_entry)
 
+    stage = match_bank_times(torch, dev, tr, frames[-1])
     snap = tr.snapshot()
     t_est, _, p_est = tr.get_trajectory()
     ok = snap["ok"][:len(t_est)]
@@ -218,6 +630,8 @@ def phase_main_path(torch, dev, mc, card: str):
         "frame_ms_p90": float(np.percentile(steady, 90)),
         "frame_ms_max": float(steady.max()),
         "matcher_cuda_launches": int(launches),
+        "matcher_cuda_launches_by_entry": by_entry,
+        "match_bank": stage,
         "card": card,
     }
     print(json.dumps(out))
@@ -228,12 +642,15 @@ def phase_main_path(torch, dev, mc, card: str):
         (out["ate_rmse_m"] <= 0.15, "ate_rmse_m <= 0.15"),
         (abs(out["horn_scale"] - 1.0) <= 0.1, "|horn_scale - 1| <= 0.1"),
         (launches >= 4 * (N_FRAMES - 1), "matcher_cuda launches >= 4x159"),
+        (by_entry["projection_best2"] >= 4 * (N_FRAMES - 1),
+         "projection_best2 launches >= 4x159"),
+        (by_entry["hamming_best2"] >= 1, "hamming_best2 launched"),
         (np.all(np.isfinite(p_est)), "finite trajectory"),
     ]
     failed = [what for good, what in checks if not good]
     if failed:
         raise AssertionError("main path gates failed: " + ", ".join(failed))
-    return launches
+    return by_entry
 
 
 def main() -> int:
@@ -254,19 +671,22 @@ def main() -> int:
     print("kernel built in %.1f s: %s" % (time.perf_counter() - t0,
                                           os.path.relpath(lib, REPO)))
 
-    worst, times = phase_kernel(torch, dev, mc)
-    launches = phase_main_path(torch, dev, mc, card)
+    argv = sys.argv[1:]
+    if "--variants" in argv:
+        compare_variants(torch, dev, mc, argv[argv.index("--variants") + 1])
+        return 0
+    kernels = phase_kernel(torch, dev, mc)
+    if "--kernels-only" in argv:
+        print(json.dumps({"kernels": kernels}))
+        return 0
+    runs = int(argv[argv.index("--main-path-runs") + 1]) \
+        if "--main-path-runs" in argv else 1
+    for _ in range(runs):
+        by_entry = phase_main_path(torch, dev, mc, card)
+    for k in kernels:
+        k["launches"] = by_entry[k["name"]]
 
-    print(json.dumps({"kernels": [{
-        "name": "hamming_best2",
-        "route": "cuda",
-        "source": "openmavis_tpu_torch/csrc/hamming_best2.cu",
-        "replaces": "openmavis_tpu/frontend/matcher_pallas.py:123",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": times["map_ms"],
-        "plain_ms": times["map_plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 The JAX package `openmavis_tpu` is the reference; this package mirrors its
 module layout and public functions on torch tensors and runs on an NVIDIA
-H100 (or, for the parity tests, on the CPU). It never imports jax or
+H100: every entry point that takes `device` builds its state on the
+current CUDA device unless the caller names another (`resolve_device`);
+the parity tests pass `device="cpu"`. It never imports jax or
 `openmavis_tpu`.
 
 Subpackages
@@ -27,3 +29,16 @@ import torch as _torch
 # and normal-equation assembly, so both TF32 switches stay off.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> _torch.device:
+    """The device an entry point builds its tensors on: the one given,
+    else the current CUDA device. The port runs on the card unless the
+    caller asks for the CPU; it never falls back to the CPU by itself."""
+    if device is not None:
+        return _torch.device(device)
+    if not _torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found: openmavis_tpu_torch runs on an NVIDIA "
+            "GPU by default; pass device=\"cpu\" to run on the CPU")
+    return _torch.device("cuda", _torch.cuda.current_device())

@@ -3,7 +3,8 @@
 The JAX side is given as dicts of numpy arrays keyed by field name (for a
 NamedTuple `x`: `{k: np.asarray(v) for k, v in x._asdict().items()}`;
 nested NamedTuples as nested dicts). `*_from_numpy` builds the port's
-tensors on a given device and `*_to_numpy` goes back. Every field takes
+tensors on a given device (the current CUDA device when none is given)
+and `*_to_numpy` goes back. Every field takes
 the dtype the port allocates it with: int32 indices, int8 descriptor
 planes and bool masks never drift to torch's default int64.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
 from .imu import preintegration as pre_mod
 from .optim.reprojection import RigParams
 from .pipeline import streaming_vi as svi
@@ -20,7 +22,8 @@ from .pipeline.streaming import TrajRing
 from .slam_map import map_state as ms
 
 _MAP_DTYPES = {f: t.dtype for f, t in
-               zip(ms.MapState._fields, ms.allocate(1, 1, 1))}
+               zip(ms.MapState._fields,
+                   ms.allocate(1, 1, 1, device="cpu"))}
 _PRE_DTYPES = {f: torch.float32 for f in pre_mod.Preintegrated._fields}
 _TRAJ_DTYPES = dict(time=torch.float32, ref=torch.int32,
                     R_rel=torch.float32, t_rel=torch.float32,
@@ -48,6 +51,7 @@ def _np(x: torch.Tensor) -> np.ndarray:
 
 
 def _fields_from(d: dict, dtypes: dict, device) -> dict:
+    device = resolve_device(device)
     missing = set(dtypes) - set(d)
     if missing:
         raise KeyError(f"missing fields: {sorted(missing)}")
@@ -55,6 +59,7 @@ def _fields_from(d: dict, dtypes: dict, device) -> dict:
 
 
 def rig_from_numpy(d: dict, device=None) -> RigParams:
+    device = resolve_device(device)
     return RigParams(int(d["kind"]), _t(d["params"], torch.float32, device),
                      _t(d["R_cb"], torch.float32, device),
                      _t(d["t_cb"], torch.float32, device))
@@ -66,6 +71,7 @@ def rig_to_numpy(rig: RigParams) -> dict:
 
 
 def noise_from_numpy(d: dict, device=None) -> pre_mod.ImuNoise:
+    device = resolve_device(device)
     return pre_mod.ImuNoise(_t(d["nga"], torch.float32, device),
                             _t(d["nga_walk"], torch.float32, device))
 
@@ -94,7 +100,7 @@ def carry_from_numpy(d: dict, device=None) -> svi.VIStreamCarry:
     """JAX VIStreamCarry dict -> port carry. The PRNG key [2] uint32
     seeds the port's torch.Generator as (key[0] << 32) | key[1] (so
     PRNGKey(s) seeds s); the two streams differ by construction."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     key = np.asarray(d["key"]).astype(np.uint64)
     gen = torch.Generator(device=device)
     gen.manual_seed(int((key[0] << np.uint64(32)) | key[1]))

@@ -3,9 +3,13 @@
 — projection search, knn with Lowe ratio, mutual check).
 
 All search structure (spatial windows, scale gates, validity) is a boolean
-admissibility mask over the [N, M] query x target grid. The best-2 search
-itself goes through `matcher_cuda.masked_best2_fused`, the hand-written
-Hopper kernel on CUDA tensors; `masked_best2` here is its plain version.
+admissibility relation over the [N, M] query x target grid. The best-2
+search itself goes through the hand-written Hopper kernels of
+`matcher_cuda` on CUDA tensors: `match_nn` hands `masked_best2_fused` the
+relation as a bool mask; `match_projection` hands `projection_best2` the
+O(N + M) factors of the relation and never builds the [N, M] mask there.
+`masked_best2`, `window_mask` and `level_mask` here make up the kernels'
+plain versions.
 
 Thresholds follow the reference: TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30.
 """
@@ -115,15 +119,23 @@ def match_nn(d1, valid1, d2, valid2, max_dist: int = TH_LOW,
     if extra_mask is not None:
         mask = mask & extra_mask
     bi, b, s = matcher_cuda.masked_best2_fused(d1, d2, mask)
-    ok = (b <= max_dist) & (b.to(torch.float32)
-                            <= ratio * s.to(torch.float32))
+    ok = _accept(b, s, max_dist, ratio)
     if mutual:
         # the transposed view: the kernel reads it through its strides
         bi21, _, _ = matcher_cuda.masked_best2_fused(d2, d1, mask.T)
         ok = mutual_filter(bi, ok, bi21)
-    neg = torch.full_like(bi, -1)
-    return torch.where(ok, bi, neg), torch.where(ok, b, torch.full_like(
-        b, BIG))
+    return _matches(bi, b, ok)
+
+
+def _accept(best, second, max_dist: int, ratio: float) -> torch.Tensor:
+    """Distance threshold and Lowe ratio test on a best-2 result."""
+    return (best <= max_dist) & (best.to(torch.float32)
+                                 <= ratio * second.to(torch.float32))
+
+
+def _matches(best_idx, best, ok):
+    """(idx or -1, dist or BIG) per query."""
+    return torch.where(ok, best_idx, -1), torch.where(ok, best, BIG)
 
 
 def window_mask(xy1, xy2, radius) -> torch.Tensor:
@@ -150,13 +162,16 @@ def match_projection(proj_xy, pred_level, radius, d_query, valid_query,
                      max_dist: int = TH_HIGH, ratio: float = 1.0):
     """Projection-guided search (ORBmatcher::SearchByProjection): each
     projected landmark searches frame features within a spatial window and
-    within +-1 pyramid level of its predicted level.
+    within +-1 pyramid level of its predicted level. On CUDA tensors the
+    window, level and validity tests run inside the kernel; on the CPU the
+    plain version builds the mask from `window_mask` and `level_mask`.
     Returns (idx [N], dist [N])."""
-    m = (window_mask(proj_xy, feat_xy, radius)
-         & level_mask(pred_level, feat_level))
-    return match_nn(d_query, valid_query, feat_desc, feat_valid,
-                    max_dist=max_dist, ratio=ratio, mutual=False,
-                    extra_mask=m)
+    from . import matcher_cuda
+
+    bi, b, s = matcher_cuda.projection_best2(
+        proj_xy, pred_level, radius, d_query, valid_query, feat_xy,
+        feat_level, feat_desc, feat_valid)
+    return _matches(bi, b, _accept(b, s, max_dist, ratio))
 
 
 def dedup_targets(idx: torch.Tensor, dist: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..geometry import lie
 
 GRAVITY = np.array([0.0, 0.0, -9.81], dtype=np.float32)
@@ -43,6 +44,7 @@ class ImuNoise(NamedTuple):
     @staticmethod
     def from_sigmas(sigma_g, sigma_a, walk_g, walk_a, freq, device=None):
         sf = float(freq)
+        device = resolve_device(device)
         nga = torch.diag(torch.tensor(
             np.array([sigma_g**2 * sf] * 3 + [sigma_a**2 * sf] * 3,
                      np.float32), device=device))
@@ -232,7 +234,8 @@ def rebias(pre: Preintegrated, new_bias: torch.Tensor) -> Preintegrated:
 
 def chain_allocate(K: int, device=None,
                    dtype=torch.float32) -> Preintegrated:
-    one = init_preintegrated(torch.zeros(6, dtype=dtype, device=device))
+    one = init_preintegrated(torch.zeros(6, dtype=dtype,
+                                         device=resolve_device(device)))
     return one.map(lambda x: x.expand((K,) + x.shape).clone())
 
 

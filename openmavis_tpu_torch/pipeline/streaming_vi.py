@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..frontend import extractor
 from ..imu import preintegration as pre_mod
 from ..optim import pose_opt
@@ -144,7 +145,7 @@ def _empty_bank(C: int, F: int, device) -> dict:
 
 def init_carry(cfg: VIStreamConfig, seed: int = 0,
                device=None) -> VIStreamCarry:
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     F = (cfg.orb or extractor.OrbConfig()).n_features
     K, cap = cfg.max_kf, cfg.traj_cap
 
@@ -496,7 +497,7 @@ class StreamingVITracker:
     """Host wrapper around the per-frame step.
 
     Usage:
-        tr = StreamingVITracker(rig, cfg, noise, device="cuda")
+        tr = StreamingVITracker(rig, cfg, noise)   # on the current GPU
         for imgs, t, samples in stream:
             tr.push(imgs, t, samples)
         times, R, t = tr.get_trajectory()
@@ -513,11 +514,11 @@ class StreamingVITracker:
                 is not None or merge_kw is not None:
             raise NotImplementedError(_LATER.format(
                 "device loop closing, streaming_lc"))
-        self.device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.noise = (noise or pre_mod.ImuNoise.from_sigmas(
-            1.7e-4, 2e-3, 1.9e-5, 3e-3, cfg.imu_freq)).to(self.device)
+            1.7e-4, 2e-3, 1.9e-5, 3e-3, cfg.imu_freq,
+            device=self.device)).to(self.device)
         self.rig = rig.to(self.device)
         orb_cfg = cfg.orb or extractor.OrbConfig()
         self._step = VIStep(cfg, self.rig, self.noise)

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops import set_rows
 from . import bow
 
@@ -67,7 +68,7 @@ MAX_LOOP_EDGES = 16
 def allocate(max_kf: int, max_feat: int, max_mp: int,
              device=None, dtype=torch.float32) -> MapState:
     K, F, M = max_kf, max_feat, max_mp
-    i32, dev = torch.int32, device
+    i32, dev = torch.int32, resolve_device(device)
 
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)

@@ -166,7 +166,8 @@ def test_preintegration_integrate_compose_rebias_predict():
     noise_j = jpre.ImuNoise.from_sigmas(1.71e-4, 8.6e-3, 3.1e-6, 2.2e-4,
                                         400.0)
     noise_t = convert.noise_from_numpy(
-        {k: np.asarray(v) for k, v in noise_j._asdict().items()})
+        {k: np.asarray(v) for k, v in noise_j._asdict().items()},
+        device="cpu")
     bias = np.array([0.01, -0.02, 0.005, 0.05, -0.03, 0.02], np.float32)
     pres = []
     for seed in (7, 8):
@@ -190,8 +191,8 @@ def test_preintegration_integrate_compose_rebias_predict():
                                        a_j, jnp.asarray(nb))):
         close(x, y, atol=1e-6)
     # chain storage round trip through convert (dtype preserved)
-    ch = tpre.chain_set(tpre.chain_allocate(4), 2, a_t)
-    back = convert.pre_from_numpy(convert.pre_to_numpy(ch))
+    ch = tpre.chain_set(tpre.chain_allocate(4, device="cpu"), 2, a_t)
+    back = convert.pre_from_numpy(convert.pre_to_numpy(ch), device="cpu")
     _pre_close(tpre.chain_get(back, 2), a_j, atol=1e-6)
     assert all(x.dtype == torch.float32 for x in back)
     chj = jpre.chain_set(jpre.chain_allocate(4), 2, a_j)
@@ -231,17 +232,20 @@ def test_convert_rig_noise_pre_round_trip():
     float32 and back unchanged."""
     from openmavis_tpu_torch import scene
     rig_np = scene.build_rig("kb8")
-    rig = convert.rig_from_numpy(rig_np)
+    rig = convert.rig_from_numpy(rig_np, device="cpu")
     assert rig.params.dtype == torch.float32
     for k, v in convert.rig_to_numpy(rig).items():
         np.testing.assert_array_equal(v, rig_np[k], err_msg=k)
     nj = jpre.ImuNoise.from_sigmas(1.7e-4, 2e-3, 1.9e-5, 3e-3, 400.0)
     dn = {k: np.asarray(v) for k, v in nj._asdict().items()}
-    for k, v in convert.noise_to_numpy(convert.noise_from_numpy(dn)).items():
+    for k, v in convert.noise_to_numpy(
+            convert.noise_from_numpy(dn, device="cpu")).items():
         np.testing.assert_array_equal(v, dn[k], err_msg=k)
-    nt = tpre.ImuNoise.from_sigmas(1.7e-4, 2e-3, 1.9e-5, 3e-3, 400.0)
+    nt = tpre.ImuNoise.from_sigmas(1.7e-4, 2e-3, 1.9e-5, 3e-3, 400.0,
+                                  device="cpu")
     close(nt.nga, nj.nga, rtol=0, atol=0)
     pj = jpre.init_preintegrated(jnp.arange(6, dtype=jnp.float32))
     dp = {k: np.asarray(v) for k, v in pj._asdict().items()}
-    for k, v in convert.pre_to_numpy(convert.pre_from_numpy(dp)).items():
+    for k, v in convert.pre_to_numpy(
+            convert.pre_from_numpy(dp, device="cpu")).items():
         np.testing.assert_array_equal(v, dp[k], err_msg=k)

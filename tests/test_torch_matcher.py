@@ -1,11 +1,13 @@
 """Parity of the port's matcher (openmavis_tpu_torch/frontend/matcher.py and
 the kernel module matcher_cuda.py) with the JAX reference on the CPU.
 
-On CPU tensors `matcher_cuda.masked_best2_fused` runs its plain version;
-it must equal the TPU kernel run in the Pallas interpreter and the XLA
-`masked_best2` EXACTLY (integer outputs, tolerance 0). The CUDA kernel
-itself is held against the same plain version on the card by
-chip_smoke.py (this tree's tests import jax, which the GPU machine lacks).
+On CPU tensors `matcher_cuda.masked_best2_fused` and
+`matcher_cuda.projection_best2` run their plain versions; these must equal
+the TPU kernel run in the Pallas interpreter and the XLA `masked_best2`
+EXACTLY (integer outputs, tolerance 0). The CUDA kernels themselves are
+held against the same plain versions on the card by chip_smoke.py (this
+tree's tests import jax, which the GPU machine lacks). The last test holds
+the port's rule that the card, not the CPU, is the default device.
 """
 
 import jax.numpy as jnp
@@ -184,3 +186,207 @@ def test_rotation_histogram_filter_exact():
                                        jnp.asarray(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert 0 < int(got.sum()) < int(valid.sum())
+
+
+# ---------------------------------------------------------------------------
+# projection_best2: the factor form (window, level and validity tested per
+# pair from O(N + M) factors). On the CPU the wrapper takes its plain
+# version, which must equal the reference's mask route EXACTLY.
+# ---------------------------------------------------------------------------
+
+def _proj_case(name):
+    """(proj_xy, pred_level, radius, d_query, valid_query, feat_xy,
+    feat_level, feat_desc, feat_valid) as numpy, radius a float or [N]."""
+    seeds = dict(scalar_radius=20, per_row_radius=21, window_edge=22,
+                 nan_inf=23, all_queries_invalid=24,
+                 all_features_invalid=25, n1=26, m_ragged=27)
+    rng = np.random.RandomState(seeds[name])
+    n, m = {"n1": (1, 64), "m_ragged": (90, 77),
+            "window_edge": (64, 64)}.get(name, (150, 96))
+    size = np.array([160.0, 120.0], np.float32)
+    feat_xy = (rng.rand(m, 2) * size).astype(np.float32)
+    proj = (rng.rand(n, 2) * size).astype(np.float32)
+    lvl_f = rng.randint(0, 8, m).astype(np.int32)
+    lvl_q = rng.randint(0, 8, n).astype(np.int32)
+    d2 = _desc(rng, m)
+    src = rng.randint(0, m, n)
+    d1 = np.where(rng.rand(n, 256) < 0.15, 1 - d2[src], d2[src]).astype(
+        np.int8)
+    vq = rng.rand(n) > 0.2
+    vf = rng.rand(m) > 0.1
+    radius = 30.0
+    if name == "per_row_radius":
+        radius = rng.uniform(5.0, 60.0, n).astype(np.float32)
+    elif name == "window_edge":
+        # integer coordinates; query i sits exactly `radius` from feature
+        # i (rows < 32: not admitted, the compare is strict) or half a
+        # pixel inside (admitted); levels 3 apart leave no other candidate
+        feat_xy = np.floor(feat_xy)
+        proj = feat_xy.copy()
+        proj[:32, 0] += 30.0
+        proj[32:, 1] -= 29.5
+        lvl_f = lvl_q = (np.arange(64) * 3).astype(np.int32)
+        vq[:] = True
+        vf[:] = True
+    elif name == "nan_inf":
+        proj[::3, 0] = np.nan
+        proj[1::7, 1] = np.inf
+        proj[2::11, 0] = -np.inf
+    elif name == "all_queries_invalid":
+        vq[:] = False
+    elif name == "all_features_invalid":
+        vf[:] = False
+    elif name == "n1":
+        vq[:] = True
+        proj[0] = feat_xy[5] + 1.0
+        lvl_q[0] = lvl_f[5]
+    return proj, lvl_q, radius, d1, vq, feat_xy, lvl_f, d2, vf
+
+
+PROJ_CASES = ["scalar_radius", "per_row_radius", "window_edge", "nan_inf",
+              "all_queries_invalid", "all_features_invalid", "n1",
+              "m_ragged"]
+
+
+def _to(args, conv):
+    return [conv(a) if isinstance(a, np.ndarray) else a for a in args]
+
+
+@pytest.mark.parametrize("name", PROJ_CASES)
+def test_projection_best2_exact(name):
+    args = _proj_case(name)
+    proj, lq, radius, d1, vq, feat, lf, d2, vf = _to(args, jnp.asarray)
+    mask = (vq[:, None] & vf[None, :] & jm.window_mask(proj, feat, radius)
+            & jm.level_mask(lq, lf))
+    ref = jm.masked_best2(jm.hamming_matrix(d1, d2), mask)
+    before = tmc.launches
+    got = tmc.projection_best2(*_to(args, torch.as_tensor))
+    assert tmc.launches == before      # CPU tensors never launch
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    hit = np.asarray(ref[1]) < 300
+    if name == "window_edge":
+        assert not hit[:32].any() and hit[32:].all()
+    elif name.startswith("all_"):
+        assert not hit.any() and not np.asarray(ref[0]).any()
+    else:
+        assert hit.any()
+    if name == "nan_inf":
+        assert not hit[::3].any()
+
+
+@pytest.mark.parametrize("name", PROJ_CASES)
+def test_match_projection_exact(name):
+    args = _proj_case(name)
+    ref = jm.match_projection(*_to(args, jnp.asarray), max_dist=jm.TH_HIGH,
+                              ratio=0.9)
+    got = tm.match_projection(*_to(args, torch.as_tensor),
+                              max_dist=tm.TH_HIGH, ratio=0.9)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_projection_best2_rejects_bad_inputs():
+    """Wrong devices, dtypes and shapes raise before any dispatch: the
+    wrapper never falls back to the plain version for them."""
+    good = _to(_proj_case("scalar_radius"), torch.as_tensor)
+    before = tmc.launches
+    tmc.projection_best2(*good)
+    for i in (0, 1, 3, 4, 5, 6, 7, 8):          # mixed devices
+        bad = list(good)
+        bad[i] = bad[i].to("meta")
+        with pytest.raises(ValueError):
+            tmc.projection_best2(*bad)
+    bad = list(good)
+    bad[2] = torch.full((good[0].shape[0],), 30.0, device="meta")
+    with pytest.raises(ValueError):
+        tmc.projection_best2(*bad)
+    for i, dtype in ((0, torch.float64), (1, torch.int64), (3, torch.uint8),
+                     (4, torch.int32), (5, torch.float16), (6, torch.int16),
+                     (7, torch.float32), (8, torch.uint8)):
+        bad = list(good)
+        bad[i] = bad[i].to(dtype)
+        with pytest.raises(TypeError):
+            tmc.projection_best2(*bad)
+    for i in (0, 1, 3, 4, 5, 6, 7, 8):          # one row short
+        bad = list(good)
+        bad[i] = bad[i][:-1]
+        with pytest.raises(ValueError):
+            tmc.projection_best2(*bad)
+    bad = list(good)
+    bad[2] = torch.full((3,), 30.0)             # radius neither scalar nor [N]
+    with pytest.raises(ValueError):
+        tmc.projection_best2(*bad)
+    with pytest.raises(TypeError):              # mask form: planes are int8
+        tmc.masked_best2_fused(good[3].to(torch.uint8), good[7],
+                               torch.ones((150, 96), dtype=torch.bool))
+    assert tmc.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The card is the default device of every entry point that takes `device`.
+# ---------------------------------------------------------------------------
+
+def _device_entry_points():
+    from openmavis_tpu_torch import convert, scene
+    from openmavis_tpu_torch.frontend import extractor as tex
+    from openmavis_tpu_torch.imu import preintegration as tpre
+    from openmavis_tpu_torch.pipeline import streaming_vi as tsv
+    from openmavis_tpu_torch.slam_map import map_state as tms
+
+    kw = scene.bench_config_kwargs(4, max_kf=4, max_mp=64)
+    kw.update(img_w=64, img_h=48, obs_cap=256)
+    cfg = tsv.VIStreamConfig(orb=tex.OrbConfig(n_features=16, n_levels=2),
+                             **kw)
+    rig_np = scene.build_rig("kb8")
+    noise = tpre.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS, device="cpu")
+    carry = convert.carry_to_numpy(tsv.init_carry(cfg, 0, device="cpu"))
+    amap = convert.map_to_numpy(tms.allocate(2, 8, 16, device="cpu"))
+    pre = convert.pre_to_numpy(tpre.chain_allocate(2, device="cpu"))
+
+    return {
+        "tracker": lambda **k: tsv.StreamingVITracker(
+            convert.rig_from_numpy(rig_np, device="cpu"), cfg, noise,
+            **k).device,
+        "tracker_default_noise": lambda **k: tsv.StreamingVITracker(
+            convert.rig_from_numpy(rig_np, device="cpu"), cfg,
+            **k).noise.nga.device,
+        "init_carry": lambda **k: tsv.init_carry(cfg, 0, **k).p.device,
+        "allocate": lambda **k: tms.allocate(2, 8, 16, **k).kf_R.device,
+        "chain_allocate": lambda **k: tpre.chain_allocate(3, **k).dR.device,
+        "from_sigmas": lambda **k: tpre.ImuNoise.from_sigmas(
+            *scene.NOISE_SIGMAS, **k).nga.device,
+        "rig_from_numpy": lambda **k: convert.rig_from_numpy(
+            rig_np, **k).params.device,
+        "noise_from_numpy": lambda **k: convert.noise_from_numpy(
+            convert.noise_to_numpy(noise), **k).nga.device,
+        "pre_from_numpy": lambda **k: convert.pre_from_numpy(
+            pre, **k).dR.device,
+        "map_from_numpy": lambda **k: convert.map_from_numpy(
+            amap, **k).kf_R.device,
+        "carry_from_numpy": lambda **k: convert.carry_from_numpy(
+            carry, **k).p.device,
+    }
+
+
+DEVICE_ENTRY_POINTS = ["tracker", "tracker_default_noise", "init_carry",
+                       "allocate", "chain_allocate", "from_sigmas",
+                       "rig_from_numpy", "noise_from_numpy",
+                       "pre_from_numpy", "map_from_numpy",
+                       "carry_from_numpy"]
+
+
+@pytest.mark.parametrize("entry", DEVICE_ENTRY_POINTS)
+def test_default_device_is_the_card(entry):
+    """With no `device`, an entry point builds its state on the current
+    CUDA device, and raises a RuntimeError that names the missing card
+    where there is none; it runs on the CPU only when asked to."""
+    make = _device_entry_points()[entry]
+    assert make(device="cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -95,12 +95,13 @@ def _rigs(w):
     r = w["rig"]
     return (JRig(r["kind"], *(jnp.asarray(r[k]) for k in
                               ("params", "R_cb", "t_cb"))),
-            convert.rig_from_numpy(r))
+            convert.rig_from_numpy(r, device="cpu"))
 
 
 def _chain_t(w):
     return convert.pre_from_numpy(
-        {k: np.asarray(v) for k, v in w["chain"]._asdict().items()})
+        {k: np.asarray(v) for k, v in w["chain"]._asdict().items()},
+        device="cpu")
 
 
 def close(t, j, atol, rtol=0.0):
@@ -270,7 +271,7 @@ def test_stereo_and_inertial_residuals(window):
     pin = scene.build_rig("pinhole")
     jr = JRig(pin["kind"], *(jnp.asarray(pin[k])
                              for k in ("params", "R_cb", "t_cb")))
-    tr = convert.rig_from_numpy(pin)
+    tr = convert.rig_from_numpy(pin, device="cpu")
     p_w, cam, uv, _, _ = _frame_obs(w, 1)
     uvr = np.concatenate([uv, uv[:, :1] - 10.0], 1).astype(np.float32)
     n = len(cam)

@@ -66,10 +66,10 @@ def _record(tr, to_np):
 
 def _port_tracker(rig_np):
     return tsv.StreamingVITracker(
-        convert.rig_from_numpy(rig_np),
+        convert.rig_from_numpy(rig_np, device="cpu"),
         tsv.VIStreamConfig(orb=tex.OrbConfig(**ORB), **_cfg_kwargs()),
-        tpre.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS), seed=0,
-        device="cpu")
+        tpre.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS, device="cpu"),
+        seed=0, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -165,8 +165,8 @@ def test_convert_round_trip(runs):
     same values, and the dtypes the port allocates (int32, int8, bool)."""
     jm = runs["jax"].map
     d = {k: np.asarray(v) for k, v in jm._asdict().items()}
-    tm = convert.map_from_numpy(d)
-    ref = tms.allocate(1, 1, 1)
+    tm = convert.map_from_numpy(d, device="cpu")
+    ref = tms.allocate(1, 1, 1, device="cpu")
     for name, x, r in zip(tm._fields, tm, ref):
         assert x.dtype == r.dtype, name
     for name, v in convert.map_to_numpy(tm).items():
@@ -181,7 +181,7 @@ def test_convert_round_trip(runs):
     dc = {k: ({kk: np.asarray(vv) for kk, vv in v.items()}
               if isinstance(v, dict) else np.asarray(v))
           for k, v in dc.items()}
-    tc = convert.carry_from_numpy(dc)
+    tc = convert.carry_from_numpy(dc, device="cpu")
     pc = runs["port"].carry
     for k in convert._CARRY_SCALARS:
         assert getattr(tc, k).dtype == getattr(pc, k).dtype, k
