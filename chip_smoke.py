@@ -13,25 +13,39 @@ Phases (any failure raises; the exit code is then nonzero):
      path's shapes (16,384 x 512 map -> frame, 512 x 512 mutual), and for
      the factor form per-row radius, the window's edge, NaN and inf
      projections, all-invalid sides; the factor form also against the mask
-     form on the mask built from the same factors. Then time, at the
+     form on the mask built from the same factors; the loop closer's
+     shapes: two whole keyframes, 2,048 x 2,048, direct and through
+     `mask.T`, and its two projection searches (40 px among a candidate's
+     landmarks, 8 px among a covisible group's). Then time, at the
      main-path shapes, each wrapper (CUDA events), each kernel alone (a
      CUDA graph of 20 calls, and one call on a cold L2), each plain
      version, and `matcher.match_projection` by the mask route against
      the factor route; print each beside its bound;
   3. drive the port's StreamingVITracker over the flagship scene (4x
      KannalaBrandt8 at 640x480, 4 x 512 ORB features x 8 levels, 400 Hz
-     IMU, 160 frames, 1.25 orbits, loop closing off) and check tracking,
-     IMU initialization, ATE and that the matches went through both
-     kernels (launch counts per entry point, reset just before the run).
+     IMU, 160 frames, 1.25 orbits) with device loop closing on
+     (`device_lc=dict(score_min=30, temporal=2)`) and check tracking, IMU
+     initialization, ATE, that at least one loop was closed with the map
+     finite after it, and that the matches went through both kernels
+     (launch counts per entry point and per shape, reset just before the
+     run).
 
-Prints the kernel table as one JSON line, the main-path result as one JSON
-line, and last {"ok": true, "device": {...}}.
+Prints the main-path result as one JSON line, the kernel table as one JSON
+line (one record per kernel, shape and mask layout, each with its own
+times, bound and launches of the main-path run), and last
+{"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py   (from the repository root, one GPU)
      python3 chip_smoke.py --kernels-only   stops after phase 2 (a quick
      check of the kernels; it prints no {"ok": ...} line)
      python3 chip_smoke.py --main-path-runs N   drives phase 3 N times in
      one process (the run-to-run spread of its content and times)
+     python3 chip_smoke.py --no-lc   phase 3 with loop closing off (the
+     odometry run of the earlier slices, for comparison)
+     python3 chip_smoke.py --stages   phase 3 with a synchronized timer
+     around every stage of the step and of the loop closer; prints the
+     table as one JSON line. Its syncs lengthen the frames, so the frame
+     times of such a run are not comparable with a plain run's
      python3 chip_smoke.py --variants DIR   instead of the phases: builds
      each DIR/*.cu in place of the kernel source, checks it and times it
      beside the package's own source
@@ -173,14 +187,18 @@ def kernel_cases(torch, dev):
     return cases
 
 
-def main_path_factors(torch, dev, n: int = 16384, m: int = 512):
+def main_path_factors(torch, dev, n: int = 16384, m: int = 512,
+                      radius: float = 15.0, p_valid: float = 0.25,
+                      seed: int = 7):
     """The operands of one map->frame `match_projection` call as
     `_match_bank` makes it: a quarter of the landmark slab valid, 95% of
     the features valid, 15 px window, predicted level +-1, and planted
-    near-copies so that the best matches are realistic (< TH_HIGH).
+    near-copies so that the best matches are realistic (< TH_HIGH). The
+    loop closer's searches are the same call with another window and
+    fewer live rows (`radius`, `p_valid`).
     Returns the nine arguments of `projection_best2` in order."""
     g = torch.Generator(device=dev)
-    g.manual_seed(7)
+    g.manual_seed(seed)
     size = torch.tensor([640.0, 480.0], device=dev)
     proj = torch.rand((n, 2), generator=g, device=dev) * size
     feat = torch.rand((m, 2), generator=g, device=dev) * size
@@ -188,7 +206,7 @@ def main_path_factors(torch, dev, n: int = 16384, m: int = 512):
                        dtype=torch.int32)
     lf = torch.randint(0, 8, (m,), generator=g, device=dev,
                        dtype=torch.int32)
-    vq = torch.rand(n, generator=g, device=dev) < 0.25
+    vq = torch.rand(n, generator=g, device=dev) < p_valid
     vf = torch.rand(m, generator=g, device=dev) < 0.95
     d2 = (torch.rand((m, 256), generator=g, device=dev) > 0.5).to(
         torch.int8)
@@ -200,7 +218,23 @@ def main_path_factors(torch, dev, n: int = 16384, m: int = 512):
     jitter = (torch.rand((n, 2), generator=g, device=dev) - 0.5) * 16.0
     proj = torch.where(near[:, None], feat[src] + jitter, proj)
     lq = torch.where(near, lf[src], lq)
-    return proj, lq, 15.0, d1, vq, feat, lf, d2, vf
+    return proj, lq, radius, d1, vq, feat, lf, d2, vf
+
+
+def keyframe_pair_case(torch, dev, cf: int = 2048):
+    """Two whole keyframes against each other as the loop closer's
+    `_pairs_from_tables` hands them to `match_nn`: C F = 2,048 features a
+    side, the second keyframe's descriptors near-copies of the first's in
+    another order, a row or column admissible where its feature is bound
+    to a landmark (45% and 40%). Returns (d1, d2, mask)."""
+    rng = np.random.RandomState(5)
+    d1 = _desc(torch, dev, rng, cf)
+    flip = torch.as_tensor(rng.rand(cf, 256) < 0.1, device=dev)
+    d2 = torch.where(flip, 1 - d1, d1)[torch.as_tensor(rng.permutation(cf),
+                                                        device=dev)]
+    has_a = torch.as_tensor(rng.rand(cf) < 0.45, device=dev)
+    has_b = torch.as_tensor(rng.rand(cf) < 0.40, device=dev)
+    return d1, d2, has_a[:, None] & has_b[None, :]
 
 
 def factors_mask(mc, args):
@@ -287,8 +321,8 @@ def _bound_ms(nbytes: int, bit_ops: int):
 
 def phase_kernel(torch, dev, mc):
     """Every entry point against its plain version, exactly, on every
-    case; then times at the main-path shapes. Returns the two kernels'
-    records for the `kernels` line."""
+    case; then times at the main-path shapes. Returns the records of the
+    `kernels` line: one per kernel, shape and mask layout."""
     from openmavis_tpu_torch.frontend import matcher, orb
 
     # ---- mask form -----------------------------------------------------
@@ -304,6 +338,9 @@ def phase_kernel(torch, dev, mc):
     smask = torch.as_tensor(rng.rand(512, 512) > 0.02, device=dev)
     cases.append(("mutual512", s1, s2, smask))
     cases.append(("mutual512_T", s2, s1, smask.T))
+    k1, k2, kmask = keyframe_pair_case(torch, dev)
+    cases.append(("keyframes2048", k1, k2, kmask))
+    cases.append(("keyframes2048_T", k2, k1, kmask.T))
     for name, a, b, mk in cases:
         ref = mc.masked_best2_plain(a, b, mk)
         _exact(torch, f"hamming_best2 {name}",
@@ -315,7 +352,12 @@ def phase_kernel(torch, dev, mc):
               f"{tuple(mk.stride())})")
 
     # ---- factor form ---------------------------------------------------
-    pcases = [("map16384x512", list(args))] + projection_cases(torch, dev)
+    pcases = [("map16384x512", list(args)),
+              ("lc_pairs_by_projection_r40", list(main_path_factors(
+                  torch, dev, radius=40.0, p_valid=0.03, seed=8))),
+              ("lc_group_projection_r8", list(main_path_factors(
+                  torch, dev, radius=8.0, p_valid=0.10, seed=9)))] \
+        + projection_cases(torch, dev)
     for name, a in pcases:
         ref = mc.projection_best2_plain(*a)
         _exact(torch, f"projection_best2 {name}", mc.projection_best2(*a),
@@ -372,6 +414,7 @@ def phase_kernel(torch, dev, mc):
     pairs = int(mask.sum())
     q, w = orb.pack_bits(d1), orb.pack_bits(d2)
     sq, sw = orb.pack_bits(s2), orb.pack_bits(s1)
+    kq, kw = orb.pack_bits(k1), orb.pack_bits(k2)
     t = {"live_rows": live, "live_row_share": live / n,
          "rows_with_a_candidate": rows_hit, "admissible_pairs": pairs}
     # in turns: plain, wrapper, device-only, wrapper, plain
@@ -385,6 +428,12 @@ def phase_kernel(torch, dev, mc):
             ("mask_mutual", lambda: mc.masked_best2_fused(s1, s2, smask),
              lambda: mc.masked_best2_plain(s1, s2, smask),
              lambda: mc.launch_packed(sw, sq, smask)),
+            ("mask_kf", lambda: mc.masked_best2_fused(k1, k2, kmask),
+             lambda: mc.masked_best2_plain(k1, k2, kmask),
+             lambda: mc.launch_packed(kq, kw, kmask)),
+            ("mask_kf_T", lambda: mc.masked_best2_fused(k2, k1, kmask.T),
+             lambda: mc.masked_best2_plain(k2, k1, kmask.T),
+             lambda: mc.launch_packed(kw, kq, kmask.T)),
             ("proj_map", lambda: mc.projection_best2(*args),
              lambda: mc.projection_best2_plain(*args), None)):
         runs = [cuda_time_ms(plain), cuda_time_ms(fused),
@@ -405,32 +454,48 @@ def phase_kernel(torch, dev, mc):
     t["match_projection_mask_route_ms"] = (runs[0] + runs[3]) / 2
     t["match_projection_factor_route_ms"] = (runs[1] + runs[2]) / 2
 
-    # bounds from this run's inputs: every byte the function needs, once
+    # bounds from this run's inputs: every byte the function needs, once.
+    # A row or a column with no admissible pair is answered without its
+    # descriptor, so only the others' planes count.
+    def mask_bytes(mk):
+        rows, cols = mk.shape
+        return {"mask": rows * cols,
+                "query planes (rows with a candidate)":
+                int(mk.any(1).sum()) * 256,
+                "target planes (columns with a candidate)":
+                int(mk.any(0).sum()) * 256,
+                "outputs": rows * 12}
+
     mfeat = int(vf.numel())
-    bytes_mask = {"mask": n * m, "query planes (rows with a candidate)":
-                  rows_hit * 256, "target planes": m * 256,
-                  "outputs": n * 12}
+    bytes_mask, bytes_mut, bytes_kf = (mask_bytes(mask), mask_bytes(smask),
+                                       mask_bytes(kmask))
     bytes_proj = {"valid_query": n, "xy, level of live rows": live * 12,
                   "query planes (rows with a candidate)": rows_hit * 256,
-                  "features (planes, xy, level, valid)": mfeat * 269,
+                  "features (xy, level, valid)": mfeat * 13,
+                  "feature planes (columns with a candidate)":
+                  int(mask.any(0).sum()) * 256,
                   "outputs": n * 12}
-    sm = int(smask.numel())
-    bytes_mut = {"mask": sm, "query planes": 512 * 256,
-                 "target planes": 512 * 256, "outputs": 512 * 12}
     b_mask, by_mask = _bound_ms(sum(bytes_mask.values()), pairs * 512)
     b_proj, by_proj = _bound_ms(sum(bytes_proj.values()), pairs * 512)
     b_mut, by_mut = _bound_ms(sum(bytes_mut.values()),
                               int(smask.sum()) * 512)
+    b_kf, by_kf = _bound_ms(sum(bytes_kf.values()), int(kmask.sum()) * 512)
     t.update(mask_map_bound_ms=b_mask, proj_map_bound_ms=b_proj,
-             mask_mutual_bound_ms=b_mut, mask_map_bytes=bytes_mask,
-             proj_map_bytes=bytes_proj, mask_mutual_bytes=bytes_mut)
-    print("kernel times at 16,384 x 512 and 512 x 512 (ms per call; "
+             mask_mutual_bound_ms=b_mut, mask_kf_bound_ms=b_kf,
+             mask_map_bytes=bytes_mask, proj_map_bytes=bytes_proj,
+             mask_mutual_bytes=bytes_mut, mask_kf_bytes=bytes_kf,
+             mask_kf_admissible_pairs=int(kmask.sum()),
+             mask_kf_rows_with_a_candidate=int(kmask.any(1).sum()),
+             mask_kf_columns_with_a_candidate=int(kmask.any(0).sum()))
+    print("kernel times at 16,384 x 512, 512 x 512 and 2,048 x 2,048 (ms "
+          "per call; "
           "wrapper = cuda events around 10 back-to-back calls, median of "
           "%d; kernel_only = 20 calls in one CUDA graph, median of %d "
           "replays; cold = one call after 256 MB were written): %s"
           % (REPS, REPS, json.dumps(t)))
     for key, bound in (("mask_map", b_mask), ("mask_mutual", b_mut),
-                       ("mask_mutual_T", b_mut), ("proj_map", b_proj)):
+                       ("mask_mutual_T", b_mut), ("mask_kf", b_kf),
+                       ("mask_kf_T", b_kf), ("proj_map", b_proj)):
         print("%-14s wrapper %8.2f us  kernel alone %7.2f us  cold %7.2f us"
               "  plain %8.2f us  bound %6.3f us"
               % (key, t[f"{key}_wrapper_ms"] * 1e3,
@@ -442,24 +507,31 @@ def phase_kernel(torch, dev, mc):
           % (n, m, live, 100.0 * live / n,
              t["match_projection_mask_route_ms"] * 1e3,
              t["match_projection_factor_route_ms"] * 1e3))
-    common = {"route": "cuda",
-              "source": "openmavis_tpu_torch/csrc/hamming_best2.cu",
-              "replaces": "openmavis_tpu/frontend/matcher_pallas.py:123",
-              "max_abs_err": 0, "library_ms": None,
-              "shape": f"{n}x{m}"}
+    # one record per kernel, shape and mask layout: its own times, bound
+    # and (filled in after the main path's run) launches
+    def record(name, key, shape, layout, bound, bound_by):
+        return {"name": name, "route": "cuda",
+                "source": "openmavis_tpu_torch/csrc/hamming_best2.cu",
+                "replaces": "openmavis_tpu/frontend/matcher_pallas.py:123",
+                "shape": "%dx%d" % shape, "mask_layout": layout,
+                "max_abs_err": 0, "ms": t[f"{key}_wrapper_ms"],
+                "kernel_only_ms": t[f"{key}_kernel_only_ms"],
+                "plain_ms": t[f"{key}_plain_ms"], "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None}
+
+    kn = int(k1.shape[0])
     return [
-        dict(common, name="hamming_best2", ms=t["mask_map_wrapper_ms"],
-             kernel_only_ms=t["mask_map_kernel_only_ms"],
-             plain_ms=t["mask_map_plain_ms"], bound_ms=b_mask,
-             bound_by=by_mask,
-             mutual512_T_ms=t["mask_mutual_T_wrapper_ms"],
-             mutual512_T_kernel_only_ms=t["mask_mutual_T_kernel_only_ms"],
-             mutual512_plain_ms=t["mask_mutual_T_plain_ms"],
-             mutual512_bound_ms=b_mut),
-        dict(common, name="projection_best2", ms=t["proj_map_wrapper_ms"],
-             kernel_only_ms=t["proj_map_kernel_only_ms"],
-             plain_ms=t["proj_map_plain_ms"], bound_ms=b_proj,
-             bound_by=by_proj)]
+        record("hamming_best2", "mask_mutual", (512, 512), "rows", b_mut,
+               by_mut),
+        record("hamming_best2", "mask_mutual_T", (512, 512), "T", b_mut,
+               by_mut),
+        record("hamming_best2", "mask_kf", (kn, kn), "rows", b_kf, by_kf),
+        record("hamming_best2", "mask_kf_T", (kn, kn), "T", b_kf, by_kf),
+        # the mask form at the map -> frame shape: off the main path, which
+        # takes the factor form there
+        record("hamming_best2", "mask_map", (n, m), "rows", b_mask, by_mask),
+        record("projection_best2", "proj_map", (n, m), "factors", b_proj,
+               by_proj)]
 
 
 def mask_route_match_projection(proj_xy, pred_level, radius, d_query,
@@ -575,7 +647,84 @@ def compare_variants(torch, dev, mc, directory: str) -> None:
         mc._SRC, mc._lib = own, None
 
 
-def phase_main_path(torch, dev, mc, card: str):
+class StageTimer:
+    """Synchronized per-stage timers: `wrap` replaces an attribute (a
+    module's function or an instance's method) by a version that
+    synchronizes the device before and after the call and adds the host
+    time between to the stage's total. Stages nest, so times are
+    inclusive. The syncs serialize host and device: a run under the timer
+    is slower than a plain one."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.stages: dict = {}
+        self._undo: list = []
+
+    def wrap(self, owner, attr: str, label: str | None = None) -> None:
+        fn = getattr(owner, attr)
+        rec = self.stages.setdefault(label or attr, [0, 0.0])
+        sync = self.torch.cuda.synchronize
+
+        def timed(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                sync()
+                rec[0] += 1
+                rec[1] += (time.perf_counter() - t0) * 1e3
+
+        self._undo.append((owner, attr, fn, attr in vars(owner)))
+        setattr(owner, attr, timed)
+
+    def restore(self) -> None:
+        for owner, attr, fn, own in reversed(self._undo):
+            if own:
+                setattr(owner, attr, fn)
+            else:
+                delattr(owner, attr)
+        self._undo.clear()
+
+    def table(self) -> dict:
+        return {k: {"calls": n, "total_ms": ms,
+                    "ms_per_call": ms / n if n else None}
+                for k, (n, ms) in sorted(self.stages.items(),
+                                         key=lambda kv: -kv[1][1])}
+
+
+def wrap_stages(timer: StageTimer, tr) -> None:
+    """Put the timer around every stage of the tracker's step and of its
+    loop closer."""
+    from openmavis_tpu_torch.imu import preintegration as pre_mod
+    from openmavis_tpu_torch.optim import pose_opt
+    from openmavis_tpu_torch.pipeline import multi_tracking as mt
+    from openmavis_tpu_torch.pipeline import tracking as trk
+    for name in ("extract_bank", "branch_track", "kf_insert",
+                 "imu_init_maybe", "vi_window_ba"):
+        timer.wrap(tr._step, name)
+    timer.wrap(pre_mod, "integrate", "pre_mod.integrate")
+    for name in ("pose_inertial_optimization", "pose_optimization"):
+        timer.wrap(pose_opt, name)
+    for name in ("_match_bank", "stereo_spawn", "temporal_spawn_multi",
+                 "bind_landmarks_multi", "vi_window_ba_step",
+                 "imu_init_step"):
+        timer.wrap(mt, name)
+    for name in ("fuse_new_landmarks", "cull_keyframes", "local_ba_step"):
+        timer.wrap(trk, name)
+    lc = tr._lc_step
+    if lc is not None:
+        timer.wrap(lc, "step", "lc_step")
+        for name, label in (("retrieval", "lc_retrieval"),
+                            ("solve_candidate", "lc_solve_candidate"),
+                            ("group_score", "lc_group_score"),
+                            ("correct", "lc_correct"),
+                            ("gba_step", "lc_gba_step")):
+            timer.wrap(lc, name, label)
+
+
+def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
+                    stages: bool = False):
     from openmavis_tpu_torch import scene
     from openmavis_tpu_torch.frontend import extractor
     from openmavis_tpu_torch.imu import preintegration as pre_mod
@@ -594,19 +743,35 @@ def phase_main_path(torch, dev, mc, card: str):
         orb=extractor.OrbConfig(n_features=512, n_levels=8),
         **scene.bench_config_kwargs(N_FRAMES))
     noise = pre_mod.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS)
+    # the reference bench's loop-closing settings
+    lc_kw = dict(score_min=30, temporal=2)
     tr = streaming_vi.StreamingVITracker(rig, cfg, noise, seed=0,
-                                         device=dev)
-    frame_ms = []
+                                         device=dev,
+                                         device_lc=lc_kw if lc else False)
+    timer = StageTimer(torch)
+    if stages:
+        wrap_stages(timer, tr)
+    frame_ms, lc_frames = [], []
     torch.cuda.synchronize()
     mc.reset_launch_counts()
-    for i in range(N_FRAMES):
-        t, b = batches[i]
-        t1 = time.perf_counter()
-        tr.push(frames[i], t, b)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t1) * 1e3)
-    launches = mc.launches
-    by_entry = dict(mc.launches_by_entry)
+    try:
+        for i in range(N_FRAMES):
+            t, b = batches[i]
+            t1 = time.perf_counter()
+            tr.push(frames[i], t, b)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+            if tr.lc_events:
+                lc_frames.append({"frame": i, "ms": frame_ms[-1],
+                                  "events": list(tr.lc_events)})
+    finally:
+        timer.restore()
+    launches = mc.launch_count()
+    by_entry = {name: mc.launch_count(name)
+                for name in ("hamming_best2", "projection_best2")}
+    counts = dict(mc.launches_by_shape)
+    by_shape = {"%s %dx%d %s" % k: v for k, v in sorted(counts.items())}
+    cf = cfg.n_cams * 512
 
     stage = match_bank_times(torch, dev, tr, frames[-1])
     snap = tr.snapshot()
@@ -616,7 +781,12 @@ def phase_main_path(torch, dev, mc, card: str):
                               np.arange(N_FRAMES) / scene.FPS_IN, t_wb,
                               with_scale=True)
     steady = np.asarray(frame_ms[10:])
+    m = tr.map
+    map_finite = bool(torch.isfinite(m.kf_R).all()
+                      & torch.isfinite(m.kf_t).all()
+                      & torch.isfinite(m.mp_pos).all())
     out = {
+        "loop_closing": lc,
         "frames_tracked": int(ok.sum()),
         "n_keyframes": int(snap["n_kf"]),
         "n_landmarks": int(snap["n_mp"]),
@@ -629,12 +799,36 @@ def phase_main_path(torch, dev, mc, card: str):
         "frame_ms_median": float(np.median(steady)),
         "frame_ms_p90": float(np.percentile(steady, 90)),
         "frame_ms_max": float(steady.max()),
+        "map_finite": map_finite,
         "matcher_cuda_launches": int(launches),
         "matcher_cuda_launches_by_entry": by_entry,
+        "matcher_cuda_launches_by_shape": by_shape,
         "match_bank": stage,
+        "stage_timers": stages,
         "card": card,
     }
+    if lc:
+        def ms_of(event):
+            return [f["ms"] for f in lc_frames if event in f["events"]]
+
+        out.update(
+            loop_closures=int(snap["n_loops"]),
+            lc_max_tilt_rad=float(snap["lc_max_tilt"]),
+            # [best retrieval score, its floor, attempts, most matched
+            # pairs, RANSAC + refine successes, best group score]
+            lc_stage_max=[float(x) for x in snap["lc_dbg"]],
+            gba_left=int(snap["gba_left"]),
+            lc_frames=lc_frames,
+            lc_attempt_frame_ms=ms_of("attempt"),
+            lc_correction_frame_ms=ms_of("correction"),
+            lc_gba_step_frame_ms=ms_of("gba_step"),
+            loop_edges=[[int(i), int(j)] for i, j, v in zip(
+                m.loop_i.tolist(), m.loop_j.tolist(),
+                m.loop_valid.tolist()) if v])
     print(json.dumps(out))
+    if stages:
+        print(json.dumps({"stages": timer.table(), "card": card,
+                          "frames": N_FRAMES, "loop_closing": lc}))
     checks = [
         (out["frames_tracked"] >= 152, "frames_tracked >= 152"),
         (out["imu_initialized"] and out["viba_stage"] >= 1,
@@ -646,11 +840,24 @@ def phase_main_path(torch, dev, mc, card: str):
          "projection_best2 launches >= 4x159"),
         (by_entry["hamming_best2"] >= 1, "hamming_best2 launched"),
         (np.all(np.isfinite(p_est)), "finite trajectory"),
+        (map_finite, "finite map"),
     ]
+    if lc:
+        attempts = int(out["lc_stage_max"][2])
+        kf_pairs = [counts.get(("hamming_best2", cf, cf, layout), 0)
+                    for layout in ("rows", "T")]
+        checks += [
+            (out["loop_closures"] >= 1, "loop_closures >= 1"),
+            (attempts >= 1 and kf_pairs == [attempts, attempts],
+             "hamming_best2 at %dx%d launched once directly and once "
+             "through mask.T per attempt" % (cf, cf)),
+            (len(out["lc_correction_frame_ms"]) == out["loop_closures"],
+             "one correction frame per loop closure"),
+        ]
     failed = [what for good, what in checks if not good]
     if failed:
         raise AssertionError("main path gates failed: " + ", ".join(failed))
-    return by_entry
+    return counts
 
 
 def main() -> int:
@@ -682,9 +889,17 @@ def main() -> int:
     runs = int(argv[argv.index("--main-path-runs") + 1]) \
         if "--main-path-runs" in argv else 1
     for _ in range(runs):
-        by_entry = phase_main_path(torch, dev, mc, card)
+        counts = phase_main_path(torch, dev, mc, card,
+                                 lc="--no-lc" not in argv,
+                                 stages="--stages" in argv)
     for k in kernels:
-        k["launches"] = by_entry[k["name"]]
+        n, m = map(int, k["shape"].split("x"))
+        k["launches"] = counts.get((k["name"], n, m, k["mask_layout"]), 0)
+    # every launch of the run belongs to one of the records
+    listed = sum(k["launches"] for k in kernels)
+    if listed != sum(counts.values()):
+        raise AssertionError("the main path launched a kernel at a shape "
+                             "with no record: %s" % sorted(counts))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

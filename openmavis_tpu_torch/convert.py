@@ -17,6 +17,7 @@ import torch
 from . import resolve_device
 from .imu import preintegration as pre_mod
 from .optim.reprojection import RigParams
+from .pipeline import streaming_lc as slc
 from .pipeline import streaming_vi as svi
 from .pipeline.streaming import TrajRing
 from .slam_map import map_state as ms
@@ -39,6 +40,10 @@ _CARRY_SCALARS = dict(
     last_kf_slot=torch.int32, ref_kf_inliers=torch.int32,
     lost_frames=torch.int32, boost=torch.int32, chain_valid=torch.bool,
     ref_time=torch.float32)
+
+
+_LC_DTYPES = {f: t.dtype for f, t in
+              zip(slc.LCCarry._fields, slc.init_lc_carry(device="cpu"))}
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -122,3 +127,11 @@ def carry_to_numpy(c: svi.VIStreamCarry) -> dict:
     out["ref_bank"] = {k: _np(v) for k, v in c.ref_bank.items()}
     out["traj"] = {k: _np(v) for k, v in c.traj._asdict().items()}
     return out
+
+
+def lc_carry_from_numpy(d: dict, device=None) -> slc.LCCarry:
+    return slc.LCCarry(**_fields_from(d, _LC_DTYPES, device))
+
+
+def lc_carry_to_numpy(lcc: slc.LCCarry) -> dict:
+    return {k: _np(v) for k, v in lcc._asdict().items()}

@@ -13,14 +13,17 @@ with no admissible target gives `(0, 300, 300)`):
 * `masked_best2_fused(d1, d2, mask)`: admissibility as a bool mask [N, M]
   with any strides (so the mutual pass hands over `mask.T` without a copy).
   Kernel `hamming_best2`; plain version `masked_best2_plain`. Reached from
-  `matcher.match_nn` (stereo and temporal spawn). `launch_packed` is the
-  same kernel for callers that already hold packed words.
+  `matcher.match_nn` (stereo and temporal spawn; the loop closer's
+  keyframe-to-keyframe pairs, `loop_closing._pairs_from_tables`).
+  `launch_packed` is the same kernel for callers that already hold packed
+  words.
 * `projection_best2(...)`: admissibility from its factors (projection,
   predicted level, radius and validity per query; position, level and
   validity per feature), tested inside the kernel: no [N, M] array is
   built. Kernel `projection_best2`; plain version `projection_best2_plain`.
   Reached from `matcher.match_projection` (`_match_bank`,
-  `bind_landmarks_multi`).
+  `bind_landmarks_multi`; the loop closer's `pairs_by_projection` and
+  `group_projection_score`).
 
 Both kernels pack the {0,1} int8 descriptor planes themselves: no torch op
 touches the descriptors between the caller and the launch.
@@ -49,11 +52,13 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "openmavis_tpu_torch"
 _MAX_COLS = 1 << 20           # the kernel's (dist << 20 | col) key width
 
-# Kernel launches, all entry points together and per kernel. A wrapper adds
-# one where it launches its kernel and nowhere else; callers that need to
-# show that a run went through the kernels reset and read them.
-launches = 0
-launches_by_entry = {"hamming_best2": 0, "projection_best2": 0}
+# Kernel launches, (kernel, N, M, mask layout) -> count; the layout is
+# "rows" for a mask whose rows are contiguous, "T" for the transpose of
+# such a mask, "strided" for any other, and "factors" for the factor form.
+# A wrapper adds one where it launches its kernel and nowhere else; callers
+# that need to show that a run went through the kernels reset the counts
+# and read them (`launch_count`).
+launches_by_shape: dict = {}
 
 _lib = None
 
@@ -115,20 +120,31 @@ def _load():
 
 
 def reset_launch_counts() -> None:
-    """Set `launches` and every count of `launches_by_entry` to 0."""
-    global launches
-    launches = 0
-    for name in launches_by_entry:
-        launches_by_entry[name] = 0
+    """Empty `launches_by_shape`: every count is 0 again."""
+    launches_by_shape.clear()
 
 
-def _launched(name: str, err: int) -> None:
+def launch_count(name: str | None = None, n: int | None = None,
+                 m: int | None = None, layout: str | None = None) -> int:
+    """Launches since the last reset: of every kernel, or of those that
+    agree with each argument given (kernel name, N, M, mask layout)."""
+    want = (name, n, m, layout)
+    return sum(v for k, v in launches_by_shape.items()
+               if all(w is None or w == x for w, x in zip(want, k)))
+
+
+def _mask_layout(mask: torch.Tensor) -> str:
+    if mask.stride(1) == 1:
+        return "rows"
+    return "T" if mask.stride(0) == 1 else "strided"
+
+
+def _launched(name: str, err: int, n: int, m: int, layout: str) -> None:
     """Raise on a refused launch, else count it."""
-    global launches
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches += 1
-    launches_by_entry[name] += 1
+    key = (name, n, m, layout)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
 
 
 def _outputs(n: int, device):
@@ -209,7 +225,7 @@ def masked_best2_fused(d1: torch.Tensor, d2: torch.Tensor,
             mask.stride(0), mask.stride(1), n, m, out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _launched("hamming_best2", err)
+    _launched("hamming_best2", err, n, m, _mask_layout(mask))
     return out
 
 
@@ -235,7 +251,7 @@ def launch_packed(q: torch.Tensor, t: torch.Tensor, mask: torch.Tensor):
             q.data_ptr(), t.data_ptr(), mask.data_ptr(), mask.stride(0),
             mask.stride(1), n, m, out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _launched("hamming_best2", err)
+    _launched("hamming_best2", err, n, m, _mask_layout(mask))
     return out
 
 
@@ -307,5 +323,5 @@ def projection_best2(proj_xy, pred_level, radius, d_query, valid_query,
             feat_desc.data_ptr(), st, factors[5].data_ptr(), n, m,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _launched("projection_best2", err)
+    _launched("projection_best2", err, n, m, "factors")
     return out

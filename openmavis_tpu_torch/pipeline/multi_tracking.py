@@ -438,24 +438,10 @@ def imu_init_step(m: ms.MapState, pre_b, edge_valid, bias, first: bool,
     # re-linearize the chain at the refreshed bias
     edges = ba.InertialEdges(pre=pre_mod.rebias(pre_b, bias_new),
                              valid=edge_valid)
-    state0 = ba.BAState(R=m.kf_R, t=m.kf_t, v=m.kf_v, bg=m.kf_bg,
-                        ba=m.kf_ba, points=m.mp_pos)
     fixed = (torch.arange(K, device=dev) < 1) | ~m.kf_valid
     state, inlier, chi = global_ba.global_bundle_adjust(
-        state0, obs, rig, fixed, point_fixed=~observed, edges=edges,
-        stages=(3, 4), cg_iters=12)
-    good = torch.isfinite(chi)
-    upd = m.kf_valid & good
-    kf_obs = m.kf_obs.clone()
-    kf_obs[kf_local, feat] = torch.where(obs.valid & ~inlier, -1,
-                                         m.kf_obs[kf_local, feat])
-    m = m._replace(
-        kf_R=torch.where(upd[:, None, None], state.R, m.kf_R),
-        kf_t=torch.where(upd[:, None], state.t, m.kf_t),
-        kf_v=torch.where(upd[:, None], state.v, m.kf_v),
-        kf_bg=torch.where(upd[:, None], state.bg, m.kf_bg),
-        kf_ba=torch.where(upd[:, None], state.ba, m.kf_ba),
-        mp_pos=torch.where((observed & good)[:, None], state.points,
-                           m.mp_pos),
-        kf_obs=torch.where(good, kf_obs, m.kf_obs))
+        mono._whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
+        edges=edges, stages=(3, 4), cg_iters=12)
+    m = mono._writeback_gba(m, state, inlier, chi, observed, kf_local,
+                            feat, obs.valid, with_imu=True)
     return ms.update_mp_geometry(m), bias_new, True

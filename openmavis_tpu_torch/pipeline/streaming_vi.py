@@ -8,17 +8,19 @@ tracking with visual or 15-dof inertial pose optimization, the keyframe
 decision; on keyframes the mapper chain (stereo + temporal spawn, bind,
 fuse, cull, chain welding, visual or VI window BA) and the staged IMU
 initialization (InertialOptimization -> gravity-align -> FullInertialBA on
-the VIBA1/VIBA2 schedule).
+the VIBA1/VIBA2 schedule). With `device_lc` the device loop closer
+(`streaming_lc.make_lc_step`) runs after every frame's step, with the
+amortized post-loop FullInertialBA.
 
 The reference package runs the step as one jitted program under
 `lax.cond`/`lax.switch`; here each branch is a Python branch on a device
 scalar, which reads it back to the host (a sync per decision).
 
 Not ported yet, each raising NotImplementedError and queued in ROADMAP.md:
-device loop closing (`device_lc`, `secondary_map`, `maybe_close_loop`),
-`run_global_ba`, LOST-mode relocalization, slab recycling, the mono
-two-view init, `use_depth`, `dist`, `frames_per_dispatch > 1` and
-`track_map_cap > 0`.
+the cross-map weld (`secondary_map`, `merge_kw`), host-policy loop closing
+(`loop_closer`, `maybe_close_loop`), `run_global_ba`, LOST-mode
+relocalization, slab recycling, the mono two-view init, `use_depth`,
+`dist`, `frames_per_dispatch > 1` and `track_map_cap > 0`.
 
 Reference parity map: per-frame flow Tracking::GrabImageMulti
 src/Tracking.cc:1410; IMU preintegration :1625; prediction :1723; VI pose
@@ -44,6 +46,7 @@ from ..optim.reprojection import RigParams
 from ..ops import set_rows
 from ..slam_map import map_state as ms
 from . import multi_tracking as mt
+from . import streaming_lc
 from . import tracking as trk
 from .streaming import LOST, NEED_REF, OK, TrajRing
 
@@ -510,10 +513,14 @@ class StreamingVITracker:
         if dist is not None:
             raise NotImplementedError(_LATER.format(
                 "radtan keypoint undistortion, dist"))
-        if loop_closer is not None or device_lc or secondary_map \
-                is not None or merge_kw is not None:
+        if secondary_map is not None or merge_kw is not None:
             raise NotImplementedError(_LATER.format(
-                "device loop closing, streaming_lc"))
+                "Queue 1 item 9: the cross-map weld, "
+                "streaming_lc.make_merge_step"))
+        if loop_closer is not None:
+            raise NotImplementedError(_LATER.format(
+                "Queue 1 item 7: host-policy loop closing, "
+                "loop_closing.LoopCloser"))
         self.device = resolve_device(device)
         self.cfg = cfg
         self.noise = (noise or pre_mod.ImuNoise.from_sigmas(
@@ -525,6 +532,19 @@ class StreamingVITracker:
         self.map = ms.allocate(cfg.max_kf, cfg.n_cams * orb_cfg.n_features,
                                cfg.max_mp, device=self.device)
         self.carry = init_carry(cfg, seed, device=self.device)
+        # device loop closing: the whole detect -> verify -> correct chain
+        # after each frame's step (bool, or a dict of make_lc_step keywords)
+        self._lc_step = None
+        self.lc_carry = None
+        # what the loop closer ran on the last push, from "gba_step",
+        # "attempt" and "correction" (empty without loop closing)
+        self.lc_events: tuple = ()
+        if device_lc:
+            lc_kw = device_lc if isinstance(device_lc, dict) else {}
+            self._lc_step = streaming_lc.make_lc_step(
+                cfg, self.rig.kind, cfg.n_cams, cfg.use_imu,
+                float(cfg.img_w), float(cfg.img_h), **lc_kw)
+            self.lc_carry = streaming_lc.init_lc_carry(device=self.device)
         self._t_prev: float | None = None
         self._snap = None
 
@@ -564,6 +584,10 @@ class StreamingVITracker:
         self.map, self.carry = self._step.step(
             self.map, self.carry, imgs, t, torch.as_tensor(w).to(dev),
             torch.as_tensor(a).to(dev), torch.as_tensor(dt).to(dev))
+        if self._lc_step is not None:
+            self.map, self.carry, self.lc_carry = self._lc_step(
+                self.map, self.carry, self.lc_carry, self.rig)
+            self.lc_events = self._lc_step.events
         self._t_prev = time
         self._snap = None
 
@@ -573,7 +597,7 @@ class StreamingVITracker:
 
     def maybe_close_loop(self) -> bool:
         raise NotImplementedError(_LATER.format(
-            "host-policy loop closing, maybe_close_loop"))
+            "Queue 1 item 7: host-policy loop closing, maybe_close_loop"))
 
     def run_global_ba(self, mesh=None, stages=(4, 6), cg_iters=16):
         raise NotImplementedError(_LATER.format(
@@ -591,6 +615,11 @@ class StreamingVITracker:
                       kf_t=m.kf_t, n_kf=m.n_kf, n_mp=m.n_mp, n_obs=n_obs,
                       imu_ok=c.imu_ok.to(torch.int32),
                       viba_stage=c.viba_stage)
+        if self.lc_carry is not None:
+            fields.update(n_loops=self.lc_carry.n_loops,
+                          gba_left=self.lc_carry.gba_left,
+                          lc_max_tilt=self.lc_carry.max_tilt,
+                          lc_dbg=self.lc_carry.dbg)
         self._snap = {k: v.detach().cpu().numpy() for k, v in fields.items()}
         return self._snap
 

@@ -1,7 +1,8 @@
 """Map-side steps shared by the trackers (port of `project_landmarks`,
-`cull_landmarks`, `fuse_new_landmarks`, `cull_keyframes`, `local_ba_step`
-and `full_map_observations` of `openmavis_tpu/pipeline/tracking.py`;
-reference: src/Tracking.cc, src/LocalMapping.cc).
+`cull_landmarks`, `fuse_new_landmarks`, `cull_keyframes`, `local_ba_step`,
+`full_map_observations`, `_writeback_gba`, `global_ba_step` and
+`global_inertial_ba_step` of `openmavis_tpu/pipeline/tracking.py`;
+reference: src/Tracking.cc, src/LocalMapping.cc, src/LoopClosing.cc:2351).
 
 Keyframe slots are Python ints here; the reference package keeps them as
 traced scalars.
@@ -13,7 +14,8 @@ import torch
 
 from ..frontend import matcher
 from ..geometry import cameras
-from ..optim import ba
+from ..imu import preintegration as pre_mod
+from ..optim import ba, global_ba
 from ..optim.reprojection import RigParams
 from ..ops import compact_indices, last_occurrence, scatter_max, set_rows
 from ..slam_map import map_state as ms
@@ -259,3 +261,81 @@ def full_map_observations(m: ms.MapState, cap: int | None = None):
     observed = scatter_max(torch.zeros(M, dtype=torch.bool, device=dev),
                            mp_safe, valid)
     return obs, observed, kf_local, feat
+
+
+def _writeback_gba(m: ms.MapState, state, inlier, chi, observed, kf_local,
+                   feat, valid, with_imu: bool) -> ms.MapState:
+    """Apply a whole-map BA result back to the slabs; gated on a finite
+    chi2, so a diverged solve can never corrupt the map. Observations the
+    solve gated out are unbound. (Padding rows of a capped table all name
+    feature (0, 0) and rewrite its binding unchanged.)"""
+    good = torch.isfinite(chi)
+    upd = m.kf_valid & good
+    kf_obs = m.kf_obs.clone()
+    kf_obs[kf_local, feat] = torch.where(valid & ~inlier, -1,
+                                         m.kf_obs[kf_local, feat])
+    m = m._replace(
+        kf_R=torch.where(upd[:, None, None], state.R, m.kf_R),
+        kf_t=torch.where(upd[:, None], state.t, m.kf_t),
+        mp_pos=torch.where((observed & good)[:, None], state.points,
+                           m.mp_pos),
+        kf_obs=torch.where(good, kf_obs, m.kf_obs))
+    if with_imu:
+        m = m._replace(
+            kf_v=torch.where(upd[:, None], state.v, m.kf_v),
+            kf_bg=torch.where(upd[:, None], state.bg, m.kf_bg),
+            kf_ba=torch.where(upd[:, None], state.ba, m.kf_ba))
+    return m
+
+
+def _whole_map_state(m: ms.MapState) -> ba.BAState:
+    return ba.BAState(R=m.kf_R, t=m.kf_t, v=m.kf_v, bg=m.kf_bg, ba=m.kf_ba,
+                      points=m.mp_pos)
+
+
+def global_ba_step(m: ms.MapState, rig_kind: int, rig: RigParams,
+                   stages=(5, 8), cg_iters: int = 32,
+                   obs_cap: int = 131072):
+    """Whole-map bundle adjustment via the matrix-free Schur+PCG path
+    (reference: LoopClosing::RunGlobalBundleAdjustment ->
+    Optimizer::GlobalBundleAdjustemnt, src/LoopClosing.cc:2351); the first
+    two keyframes fix the gauge. Returns (m, chi2)."""
+    obs, observed, kf_local, feat = full_map_observations(m, obs_cap)
+    K = m.kf_R.shape[0]
+    fixed = (torch.arange(K, device=m.kf_valid.device) < 2) | ~m.kf_valid
+    state, inlier, chi = global_ba.global_bundle_adjust(
+        _whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
+        stages=stages, cg_iters=cg_iters)
+    m = _writeback_gba(m, state, inlier, chi, observed, kf_local, feat,
+                       obs.valid, with_imu=False)
+    return m, chi
+
+
+def global_inertial_ba_step(m: ms.MapState, pre_b, edge_valid,
+                            rig_kind: int, rig: RigParams, stages=(4, 6),
+                            cg_iters: int = 16, obs_cap: int = 131072):
+    """Whole-map VISUAL-INERTIAL bundle adjustment: the reference's
+    FullInertialBA as the post-loop GBA invokes it (src/LoopClosing.cc:
+    2366-2368 -> Optimizer::FullInertialBA, src/Optimizer.cc:368). The
+    temporal chain enters as [K-1] preintegrated edges; one keyframe fixes
+    the gauge (gravity and scale are observable through the chain).
+
+    pre_b: batched Preintegrated for intervals (k -> k+1), k in [0, K-1);
+    edge_valid: [K-1] bool. Returns (m, chi2)."""
+    obs, observed, kf_local, feat = full_map_observations(m, obs_cap)
+    K = m.kf_R.shape[0]
+    idx = torch.arange(K, device=m.kf_valid.device)
+    kf_in = m.kf_valid & (idx < m.n_kf)
+    edge_ok = edge_valid & kf_in[1:] & kf_in[:-1]
+    # relinearize each interval at its own keyframe's current bias
+    # (first-order Reintegrate analog, reference: src/ImuTypes.cc:152)
+    bias_k = torch.cat([m.kf_bg, m.kf_ba], dim=-1)[:-1]
+    edges = ba.InertialEdges(pre=pre_mod.rebias(pre_b, bias_k),
+                             valid=edge_ok)
+    fixed = (idx < 1) | ~m.kf_valid
+    state, inlier, chi = global_ba.global_bundle_adjust(
+        _whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
+        edges=edges, stages=stages, cg_iters=cg_iters)
+    m = _writeback_gba(m, state, inlier, chi, observed, kf_local, feat,
+                       obs.valid, with_imu=True)
+    return m, chi

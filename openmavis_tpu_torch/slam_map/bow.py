@@ -1,5 +1,5 @@
-"""LSH bag-of-words place-recognition signatures (port of `word_ids` and
-`histogram` of `openmavis_tpu/slam_map/bow.py`; reference: the DBoW2 word
+"""LSH bag-of-words place-recognition signatures (port of `word_ids`,
+`histogram` and `scores` of `openmavis_tpu/slam_map/bow.py`; reference: the DBoW2 word
 histograms of KeyFrameDatabase, src/KeyFrameDatabase.cc:581).
 
 Each descriptor is hashed by BITS fixed bit positions per table into one of
@@ -64,3 +64,11 @@ def histogram(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     h = torch.zeros(W + 1, dtype=torch.int32, device=desc.device)
     h.index_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
     return torch.clamp(h[:W], 0, 127).to(torch.int8)
+
+
+def scores(kf_bow: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Min-intersection retrieval scores: kf_bow [K, W] int8, q [W] int8
+    -> [K] int32 shared-word-occurrence counts (the DBoW2 L1-overlap
+    analog on raw counts)."""
+    return torch.sum(torch.minimum(kf_bow, q[None, :]), dim=1,
+                     dtype=torch.int32)

@@ -1,6 +1,7 @@
 """Device-resident SLAM map: fixed-capacity structure-of-arrays slabs
-(port of `MapState`, `allocate`, `insert_keyframe`, `update_mp_geometry`
-and `predict_scale_level` of `openmavis_tpu/slam_map/map_state.py`;
+(port of `MapState`, `allocate`, `add_loop_edge`, `covisibility_matrix`,
+`insert_keyframe`, `update_mp_geometry` and `predict_scale_level` of
+`openmavis_tpu/slam_map/map_state.py`;
 reference: the KF/MP pointer graph of src/Map.cc, src/KeyFrame.cc,
 src/MapPoint.cc).
 
@@ -95,6 +96,34 @@ def allocate(max_kf: int, max_feat: int, max_mp: int,
         loop_valid=z(MAX_LOOP_EDGES, dt=torch.bool),
         n_kf=z(dt=i32), n_mp=z(dt=i32), n_loop=z(dt=i32),
     )
+
+
+def add_loop_edge(m: MapState, i, j) -> MapState:
+    """Record an accepted loop constraint between keyframe slots `i` and
+    `j` (ring buffer over MAX_LOOP_EDGES)."""
+    slot = torch.remainder(m.n_loop, m.loop_i.shape[0]).to(torch.int64)
+    return m._replace(
+        loop_i=set_rows(m.loop_i, slot, i),
+        loop_j=set_rows(m.loop_j, slot, j),
+        loop_valid=set_rows(m.loop_valid, slot, True),
+        n_loop=m.n_loop + 1)
+
+
+def covisibility_matrix(m: MapState) -> torch.Tensor:
+    """[K, K] int32 count of shared landmarks between keyframes: one
+    incidence product in place of KeyFrame::UpdateConnections' per-point
+    counting loops (reference: src/KeyFrame.cc). The float32 incidence
+    holds 0/1, so the product is exact (counts < 2^24)."""
+    K, F = m.kf_obs.shape
+    M = m.mp_pos.shape[0]
+    valid_obs = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    mp = torch.where(valid_obs, m.kf_obs, M).to(torch.int64)  # dump column
+    inc = torch.zeros((K, M + 1), dtype=torch.float32,
+                      device=m.kf_obs.device)
+    inc.scatter_(1, mp, valid_obs.to(torch.float32))
+    inc = inc[:, :M]
+    cov = (inc @ inc.T).to(torch.int32)
+    return cov - torch.diag(torch.diagonal(cov))
 
 
 def insert_keyframe(m: MapState, slot: int, R, t, v, bg, ba, time,

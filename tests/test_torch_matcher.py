@@ -56,10 +56,10 @@ def test_masked_best2_fused_exact(name):
     ref_x = jm.masked_best2(jm.hamming_matrix(jnp.asarray(d1),
                                               jnp.asarray(d2)),
                             jnp.asarray(mask))
-    before = tmc.launches
+    before = tmc.launch_count()
     got = tmc.masked_best2_fused(torch.as_tensor(d1), torch.as_tensor(d2),
                                  torch.as_tensor(mask))
-    assert tmc.launches == before      # CPU tensors never launch
+    assert tmc.launch_count() == before      # CPU tensors never launch
     for g, rk, rx in zip(got, ref_k, ref_x):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(rk))
@@ -92,10 +92,10 @@ def test_wrapper_rejects_bad_inputs():
                                                  device="meta"))
     # the launch itself takes CUDA tensors only: it raises, never falls back
     words = torch.zeros((4, 8), dtype=torch.int32)
-    before = tmc.launches
+    before = tmc.launch_count()
     with pytest.raises(ValueError):
         tmc.launch_packed(words, words, torch.ones((4, 4), dtype=torch.bool))
-    assert tmc.launches == before
+    assert tmc.launch_count() == before
 
 
 def _pair(seed, n, m, flip=0.15):
@@ -259,9 +259,9 @@ def test_projection_best2_exact(name):
     mask = (vq[:, None] & vf[None, :] & jm.window_mask(proj, feat, radius)
             & jm.level_mask(lq, lf))
     ref = jm.masked_best2(jm.hamming_matrix(d1, d2), mask)
-    before = tmc.launches
+    before = tmc.launch_count()
     got = tmc.projection_best2(*_to(args, torch.as_tensor))
-    assert tmc.launches == before      # CPU tensors never launch
+    assert tmc.launch_count() == before      # CPU tensors never launch
     for g, r in zip(got, ref):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -292,7 +292,7 @@ def test_projection_best2_rejects_bad_inputs():
     """Wrong devices, dtypes and shapes raise before any dispatch: the
     wrapper never falls back to the plain version for them."""
     good = _to(_proj_case("scalar_radius"), torch.as_tensor)
-    before = tmc.launches
+    before = tmc.launch_count()
     tmc.projection_best2(*good)
     for i in (0, 1, 3, 4, 5, 6, 7, 8):          # mixed devices
         bad = list(good)
@@ -322,7 +322,7 @@ def test_projection_best2_rejects_bad_inputs():
     with pytest.raises(TypeError):              # mask form: planes are int8
         tmc.masked_best2_fused(good[3].to(torch.uint8), good[7],
                                torch.ones((150, 96), dtype=torch.bool))
-    assert tmc.launches == before
+    assert tmc.launch_count() == before
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,15 @@ import sys
 
 def test_port_imports_without_jax():
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import openmavis_tpu_torch\n"
-        "import openmavis_tpu_torch.convert\n"
-        "import openmavis_tpu_torch.scene\n"
-        "from openmavis_tpu_torch.pipeline import streaming_vi\n"
-        "from openmavis_tpu_torch.frontend import matcher_cuda\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    openmavis_tpu_torch.__path__, 'openmavis_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "for n in ('pipeline.streaming_lc', 'pipeline.loop_closing',\n"
+        "          'solvers.sim3', 'optim.pose_graph', 'optim.sim3_refine'):\n"
+        "    assert 'openmavis_tpu_torch.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'openmavis_tpu' or m.startswith('openmavis_tpu.'))\n"

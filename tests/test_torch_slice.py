@@ -93,7 +93,7 @@ def runs():
 
     ts._step.extract_bank = shared_bank
     rec = dict(jax=[], port=[], shared=[])
-    launches = matcher_cuda.launches
+    launches = matcher_cuda.launch_count()
     for i in range(N):
         t, b = batches[i]
         for name, tr, to_np in (("jax", jt, np.asarray),
@@ -101,7 +101,7 @@ def runs():
                                 ("shared", ts, convert._np)):
             tr.push(frames[i], t, b)
             rec[name].append(_record(tr, to_np))
-    assert matcher_cuda.launches == launches     # CPU run: plain version
+    assert matcher_cuda.launch_count() == launches     # CPU run: plain version
     return dict(jax=jt, port=tt, shared=ts, rec=rec, t_wb=t_wb)
 
 
