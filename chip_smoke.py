@@ -16,11 +16,15 @@ Phases (any failure raises; the exit code is then nonzero):
      form on the mask built from the same factors; the loop closer's
      shapes: two whole keyframes, 2,048 x 2,048, direct and through
      `mask.T`, and its two projection searches (40 px among a candidate's
-     landmarks, 8 px among a covisible group's). Then time, at the
-     main-path shapes, each wrapper (CUDA events), each kernel alone (a
-     CUDA graph of 20 calls, and one call on a cold L2), each plain
-     version, and `matcher.match_projection` by the mask route against
-     the factor route; print each beside its bound;
+     landmarks, 8 px among a covisible group's); relocalization's shapes:
+     one frame's 512 features against a whole keyframe's 2,048, direct
+     (512 x 2,048) and through `mask.T` (2,048 x 512); the capped local
+     map's and the long slab's projection searches (8,192 x 512 and
+     32,768 x 512). Then time, at the main-path shapes, each wrapper
+     (CUDA events), each kernel alone (a CUDA graph of 20 calls, and one
+     call on a cold L2), each plain version, and
+     `matcher.match_projection` by the mask route against the factor
+     route; print each beside its bound;
   3. drive the port's StreamingVITracker over the flagship scene (4x
      KannalaBrandt8 at 640x480, 4 x 512 ORB features x 8 levels, 400 Hz
      IMU, 160 frames, 1.25 orbits) with device loop closing on
@@ -28,11 +32,26 @@ Phases (any failure raises; the exit code is then nonzero):
      initialization, ATE, that at least one loop was closed with the map
      finite after it, and that the matches went through both kernels
      (launch counts per entry point and per shape, reset just before the
-     run).
+     run);
+  4. drive a second path, "recycle + blackout": the same rig and
+     configuration on a longer scene of the same angular step (420 frames,
+     whose first 160 poses are phase 3's), with frames 200-205 replaced by
+     black images while the IMU keeps running. The 64-keyframe slab fills
+     and is recycled; the tracker goes LOST, coasts on the IMU, runs
+     `relocalize_step` on every LOST frame and recovers. Gates: at least
+     one recycle, after which the slab has room, its keyframes are packed
+     and finite and no earlier frame's world pose has moved by 1e-3 m;
+     frames tracked, IMU initialization, ATE, scale, at least one loop
+     closed; at least 6 LOST frames and recovery within 10 frames of the
+     images' return; three direct 512 x 2,048 and three `mask.T`
+     2,048 x 512 launches of `hamming_best2` per LOST frame; and a kidnap
+     check: `relocalize_step` on the final map from the last frame's
+     features alone, and one tracking step from the pose it proposes, land
+     within 0.10 m and 2 degrees of the tracker's pose.
 
-Prints the main-path result as one JSON line, the kernel table as one JSON
+Prints each path's result as one JSON line, the kernel table as one JSON
 line (one record per kernel, shape and mask layout, each with its own
-times, bound and launches of the main-path run), and last
+times, bound and launches of the two paths' runs), and last
 {"ok": true, "device": {...}}.
 
 Run: python3 chip_smoke.py   (from the repository root, one GPU)
@@ -42,10 +61,16 @@ Run: python3 chip_smoke.py   (from the repository root, one GPU)
      one process (the run-to-run spread of its content and times)
      python3 chip_smoke.py --no-lc   phase 3 with loop closing off (the
      odometry run of the earlier slices, for comparison)
-     python3 chip_smoke.py --stages   phase 3 with a synchronized timer
-     around every stage of the step and of the loop closer; prints the
-     table as one JSON line. Its syncs lengthen the frames, so the frame
-     times of such a run are not comparable with a plain run's
+     python3 chip_smoke.py --stages   phases 3 and 4 with a synchronized
+     timer around every stage of the step and of the loop closer; prints
+     each table as one JSON line. Its syncs lengthen the frames, so the
+     frame times of such a run are not comparable with a plain run's
+     python3 chip_smoke.py --long   instead of phases 3 and 4: the
+     reference package's long-run configuration (800 frames, 2.2 orbits,
+     256-keyframe / 32,768-landmark slab, track cap 8,192, observation
+     cap 131,072, loop closing on). A measurement without gates; it
+     writes its progress (every 25 frames) and its line into the
+     directory given by --out DIR (default chip_smoke_out/) as it goes
      python3 chip_smoke.py --variants DIR   instead of the phases: builds
      each DIR/*.cu in place of the kernel source, checks it and times it
      beside the package's own source
@@ -61,7 +86,15 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 160
+N_FEATURES = 512          # per camera
 REPS = 50
+# the second path: a longer scene of the same angular step, blacked out
+# for six frames
+N_FRAMES_2 = 420
+BLACKOUT = range(200, 206)
+# the reference package's long-run configuration (BENCH_LONG_r05.json)
+LONG = dict(n_frames=800, orbit_frac=2.2, max_kf=256, max_mp=32768,
+            track_map_cap=8192)
 
 
 def gpu_line() -> str:
@@ -237,6 +270,25 @@ def keyframe_pair_case(torch, dev, cf: int = 2048):
     return d1, d2, has_a[:, None] & has_b[None, :]
 
 
+def relocalization_case(torch, dev, f: int = 512, cf: int = 2048):
+    """One frame's camera-0 features against a whole keyframe as
+    `tracking.relocalize_step` hands them to `match_nn`: 512 queries (95%
+    valid), 2,048 targets of which those bound to a landmark (45%) are
+    admissible, a third of the queries near-copies of a target.
+    Returns (d1, d2, mask)."""
+    rng = np.random.RandomState(6)
+    d2 = _desc(torch, dev, rng, cf)
+    d1 = _desc(torch, dev, rng, f)
+    src = torch.as_tensor(rng.permutation(cf)[:f], device=dev)
+    flip = torch.as_tensor(rng.rand(f, 256) < 0.1, device=dev)
+    seen = torch.as_tensor(rng.rand(f) < 0.33, device=dev)
+    d1 = torch.where(seen[:, None], torch.where(flip, 1 - d2[src], d2[src]),
+                     d1)
+    valid = torch.as_tensor(rng.rand(f) < 0.95, device=dev)
+    has_mp = torch.as_tensor(rng.rand(cf) < 0.45, device=dev)
+    return d1, d2, valid[:, None] & has_mp[None, :]
+
+
 def factors_mask(mc, args):
     """The [N, M] mask that `projection_best2_plain` builds from its
     factors."""
@@ -341,6 +393,9 @@ def phase_kernel(torch, dev, mc):
     k1, k2, kmask = keyframe_pair_case(torch, dev)
     cases.append(("keyframes2048", k1, k2, kmask))
     cases.append(("keyframes2048_T", k2, k1, kmask.T))
+    r1, r2, rmask = relocalization_case(torch, dev)
+    cases.append(("reloc512x2048", r1, r2, rmask))
+    cases.append(("reloc2048x512_T", r2, r1, rmask.T))
     for name, a, b, mk in cases:
         ref = mc.masked_best2_plain(a, b, mk)
         _exact(torch, f"hamming_best2 {name}",
@@ -352,7 +407,13 @@ def phase_kernel(torch, dev, mc):
               f"{tuple(mk.stride())})")
 
     # ---- factor form ---------------------------------------------------
+    # the capped local map (every row live: the cap gathers valid
+    # landmarks) and the long slab (a quarter live, as at 16,384)
+    args_cap = main_path_factors(torch, dev, n=8192, p_valid=0.9, seed=21)
+    args_long = main_path_factors(torch, dev, n=32768, seed=22)
     pcases = [("map16384x512", list(args)),
+              ("cap8192x512", list(args_cap)),
+              ("long32768x512", list(args_long)),
               ("lc_pairs_by_projection_r40", list(main_path_factors(
                   torch, dev, radius=40.0, p_valid=0.03, seed=8))),
               ("lc_group_projection_r8", list(main_path_factors(
@@ -415,6 +476,7 @@ def phase_kernel(torch, dev, mc):
     q, w = orb.pack_bits(d1), orb.pack_bits(d2)
     sq, sw = orb.pack_bits(s2), orb.pack_bits(s1)
     kq, kw = orb.pack_bits(k1), orb.pack_bits(k2)
+    rq, rw = orb.pack_bits(r1), orb.pack_bits(r2)
     t = {"live_rows": live, "live_row_share": live / n,
          "rows_with_a_candidate": rows_hit, "admissible_pairs": pairs}
     # in turns: plain, wrapper, device-only, wrapper, plain
@@ -434,8 +496,18 @@ def phase_kernel(torch, dev, mc):
             ("mask_kf_T", lambda: mc.masked_best2_fused(k2, k1, kmask.T),
              lambda: mc.masked_best2_plain(k2, k1, kmask.T),
              lambda: mc.launch_packed(kw, kq, kmask.T)),
+            ("mask_reloc", lambda: mc.masked_best2_fused(r1, r2, rmask),
+             lambda: mc.masked_best2_plain(r1, r2, rmask),
+             lambda: mc.launch_packed(rq, rw, rmask)),
+            ("mask_reloc_T", lambda: mc.masked_best2_fused(r2, r1, rmask.T),
+             lambda: mc.masked_best2_plain(r2, r1, rmask.T),
+             lambda: mc.launch_packed(rw, rq, rmask.T)),
             ("proj_map", lambda: mc.projection_best2(*args),
-             lambda: mc.projection_best2_plain(*args), None)):
+             lambda: mc.projection_best2_plain(*args), None),
+            ("proj_cap", lambda: mc.projection_best2(*args_cap),
+             lambda: mc.projection_best2_plain(*args_cap), None),
+            ("proj_long", lambda: mc.projection_best2(*args_long),
+             lambda: mc.projection_best2_plain(*args_long), None)):
         runs = [cuda_time_ms(plain), cuda_time_ms(fused),
                 graph_time_ms(fused), cuda_time_ms(fused),
                 cuda_time_ms(plain)]
@@ -466,36 +538,60 @@ def phase_kernel(torch, dev, mc):
                 int(mk.any(0).sum()) * 256,
                 "outputs": rows * 12}
 
-    mfeat = int(vf.numel())
-    bytes_mask, bytes_mut, bytes_kf = (mask_bytes(mask), mask_bytes(smask),
-                                       mask_bytes(kmask))
-    bytes_proj = {"valid_query": n, "xy, level of live rows": live * 12,
-                  "query planes (rows with a candidate)": rows_hit * 256,
-                  "features (xy, level, valid)": mfeat * 13,
-                  "feature planes (columns with a candidate)":
-                  int(mask.any(0).sum()) * 256,
-                  "outputs": n * 12}
+    def proj_bytes(a):
+        mk = factors_mask(mc, a)
+        rows, feats = mk.shape
+        return {"valid_query": rows,
+                "xy, level of live rows": int(a[4].sum()) * 12,
+                "query planes (rows with a candidate)":
+                int(mk.any(1).sum()) * 256,
+                "features (xy, level, valid)": feats * 13,
+                "feature planes (columns with a candidate)":
+                int(mk.any(0).sum()) * 256,
+                "outputs": rows * 12}, int(mk.sum())
+
+    bytes_mask, bytes_mut, bytes_kf, bytes_rel = (
+        mask_bytes(mask), mask_bytes(smask), mask_bytes(kmask),
+        mask_bytes(rmask))
+    bytes_proj, _ = proj_bytes(args)
+    bytes_cap, pairs_cap = proj_bytes(args_cap)
+    bytes_long, pairs_long = proj_bytes(args_long)
     b_mask, by_mask = _bound_ms(sum(bytes_mask.values()), pairs * 512)
     b_proj, by_proj = _bound_ms(sum(bytes_proj.values()), pairs * 512)
+    b_cap, by_cap = _bound_ms(sum(bytes_cap.values()), pairs_cap * 512)
+    b_long, by_long = _bound_ms(sum(bytes_long.values()), pairs_long * 512)
     b_mut, by_mut = _bound_ms(sum(bytes_mut.values()),
                               int(smask.sum()) * 512)
     b_kf, by_kf = _bound_ms(sum(bytes_kf.values()), int(kmask.sum()) * 512)
+    b_rel, by_rel = _bound_ms(sum(bytes_rel.values()),
+                              int(rmask.sum()) * 512)
     t.update(mask_map_bound_ms=b_mask, proj_map_bound_ms=b_proj,
              mask_mutual_bound_ms=b_mut, mask_kf_bound_ms=b_kf,
+             mask_reloc_bound_ms=b_rel, proj_cap_bound_ms=b_cap,
+             proj_long_bound_ms=b_long,
              mask_map_bytes=bytes_mask, proj_map_bytes=bytes_proj,
              mask_mutual_bytes=bytes_mut, mask_kf_bytes=bytes_kf,
+             mask_reloc_bytes=bytes_rel, proj_cap_bytes=bytes_cap,
+             proj_long_bytes=bytes_long,
              mask_kf_admissible_pairs=int(kmask.sum()),
              mask_kf_rows_with_a_candidate=int(kmask.any(1).sum()),
-             mask_kf_columns_with_a_candidate=int(kmask.any(0).sum()))
-    print("kernel times at 16,384 x 512, 512 x 512 and 2,048 x 2,048 (ms "
-          "per call; "
+             mask_kf_columns_with_a_candidate=int(kmask.any(0).sum()),
+             mask_reloc_admissible_pairs=int(rmask.sum()),
+             proj_cap_admissible_pairs=pairs_cap,
+             proj_cap_live_rows=int(args_cap[4].sum()),
+             proj_long_admissible_pairs=pairs_long,
+             proj_long_live_rows=int(args_long[4].sum()))
+    print("kernel times at 16,384 x 512, 512 x 512, 2,048 x 2,048, "
+          "512 x 2,048, 8,192 x 512 and 32,768 x 512 (ms per call; "
           "wrapper = cuda events around 10 back-to-back calls, median of "
           "%d; kernel_only = 20 calls in one CUDA graph, median of %d "
           "replays; cold = one call after 256 MB were written): %s"
           % (REPS, REPS, json.dumps(t)))
     for key, bound in (("mask_map", b_mask), ("mask_mutual", b_mut),
                        ("mask_mutual_T", b_mut), ("mask_kf", b_kf),
-                       ("mask_kf_T", b_kf), ("proj_map", b_proj)):
+                       ("mask_kf_T", b_kf), ("mask_reloc", b_rel),
+                       ("mask_reloc_T", b_rel), ("proj_map", b_proj),
+                       ("proj_cap", b_cap), ("proj_long", b_long)):
         print("%-14s wrapper %8.2f us  kernel alone %7.2f us  cold %7.2f us"
               "  plain %8.2f us  bound %6.3f us"
               % (key, t[f"{key}_wrapper_ms"] * 1e3,
@@ -520,6 +616,7 @@ def phase_kernel(torch, dev, mc):
                 "bound_by": bound_by, "library_ms": None}
 
     kn = int(k1.shape[0])
+    rn, rm = rmask.shape
     return [
         record("hamming_best2", "mask_mutual", (512, 512), "rows", b_mut,
                by_mut),
@@ -531,7 +628,17 @@ def phase_kernel(torch, dev, mc):
         # takes the factor form there
         record("hamming_best2", "mask_map", (n, m), "rows", b_mask, by_mask),
         record("projection_best2", "proj_map", (n, m), "factors", b_proj,
-               by_proj)]
+               by_proj),
+        # relocalization: a frame against a keyframe, and the mutual pass
+        record("hamming_best2", "mask_reloc", (rn, rm), "rows", b_rel,
+               by_rel),
+        record("hamming_best2", "mask_reloc_T", (rm, rn), "T", b_rel,
+               by_rel),
+        # the capped local map and the long slab (`--long` launches them)
+        record("projection_best2", "proj_cap", (args_cap[3].shape[0], m),
+               "factors", b_cap, by_cap),
+        record("projection_best2", "proj_long", (args_long[3].shape[0], m),
+               "factors", b_long, by_long)]
 
 
 def mask_route_match_projection(proj_xy, pred_level, radius, d_query,
@@ -552,25 +659,27 @@ def match_bank_times(torch, dev, tr, images, reps: int = 20) -> dict:
     """The tracking stage `_match_bank` (4 cameras: projection, matching,
     dedup) on the run's final map and last frame, host clock around a
     synchronize, median of `reps`: the factor route as the port runs it,
-    and the mask route swapped in for comparison, in turns."""
+    and the mask route swapped in for comparison, in turns. With a
+    `track_map_cap`, also on the capped local map, and the compaction
+    that makes it."""
     from openmavis_tpu_torch.frontend import matcher
     from openmavis_tpu_torch.pipeline import multi_tracking as mt
     step, m, c = tr._step, tr.map, tr.carry
     bank = step.extract_bank(
         torch.as_tensor(np.asarray(images)).to(dev).to(torch.float32))
     radius = torch.tensor(step.cfg.match_radius, device=dev)
+    min_last = step.min_last_of(c)
 
-    def run():
-        return mt._match_bank(m, bank, c.R, c.p, step.rig.kind, step.C,
-                              step.rig, step.W, step.H, radius,
-                              step.min_last_of(c))
+    def match(map_):
+        return mt._match_bank(map_, bank, c.R, c.p, step.rig.kind, step.C,
+                              step.rig, step.W, step.H, radius, min_last)
 
-    def timed():
+    def timed(fn):
         ts = []
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = run()
+            out = fn()
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(ts)), out
@@ -578,12 +687,12 @@ def match_bank_times(torch, dev, tr, images, reps: int = 20) -> dict:
     factor_route = matcher.match_projection
     res = {}
     try:
-        a, out_new = timed()
+        a, out_new = timed(lambda: match(m))
         matcher.match_projection = mask_route_match_projection
-        b, out_old = timed()
-        b2, _ = timed()
+        b, out_old = timed(lambda: match(m))
+        b2, _ = timed(lambda: match(m))
         matcher.match_projection = factor_route
-        a2, _ = timed()
+        a2, _ = timed(lambda: match(m))
     finally:
         matcher.match_projection = factor_route
     if not all(torch.equal(x, y) for x, y in zip(out_new, out_old)):
@@ -592,6 +701,13 @@ def match_bank_times(torch, dev, tr, images, reps: int = 20) -> dict:
     res["mask_route_ms"] = (b + b2) / 2
     res["landmarks_valid"] = int(m.mp_valid.sum())
     res["matched"] = int(out_new[1].sum())
+    cap = step.cfg.track_map_cap
+    if cap and cap < m.mp_pos.shape[0]:
+        res["local_map_compact_ms"], (sub, _, used) = timed(
+            lambda: mt._local_map_compact(m, min_last, cap))
+        res["capped_factor_route_ms"], out_cap = timed(lambda: match(sub))
+        res.update(track_map_cap=cap, capped_landmarks=int(used.sum()),
+                   capped_matched=int(out_cap[1].sum()))
     return res
 
 
@@ -701,16 +817,17 @@ def wrap_stages(timer: StageTimer, tr) -> None:
     from openmavis_tpu_torch.pipeline import multi_tracking as mt
     from openmavis_tpu_torch.pipeline import tracking as trk
     for name in ("extract_bank", "branch_track", "kf_insert",
-                 "imu_init_maybe", "vi_window_ba"):
+                 "imu_init_maybe", "vi_window_ba", "recycle", "weld_chain"):
         timer.wrap(tr._step, name)
     timer.wrap(pre_mod, "integrate", "pre_mod.integrate")
     for name in ("pose_inertial_optimization", "pose_optimization"):
         timer.wrap(pose_opt, name)
-    for name in ("_match_bank", "stereo_spawn", "temporal_spawn_multi",
-                 "bind_landmarks_multi", "vi_window_ba_step",
-                 "imu_init_step"):
+    for name in ("_match_bank", "_local_map_compact", "stereo_spawn",
+                 "temporal_spawn_multi", "bind_landmarks_multi",
+                 "vi_window_ba_step", "imu_init_step"):
         timer.wrap(mt, name)
-    for name in ("fuse_new_landmarks", "cull_keyframes", "local_ba_step"):
+    for name in ("fuse_new_landmarks", "cull_keyframes", "local_ba_step",
+                 "relocalize_step"):
         timer.wrap(trk, name)
     lc = tr._lc_step
     if lc is not None:
@@ -723,39 +840,49 @@ def wrap_stages(timer: StageTimer, tr) -> None:
             timer.wrap(lc, name, label)
 
 
-def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
-                    stages: bool = False):
+def make_tracker(torch, dev, n_frames: int, lc: bool, max_kf: int = 64,
+                 max_mp: int = 16384, **overrides):
+    """The flagship rig's tracker on the card: the bench configuration
+    (`scene.bench_config_kwargs`) with 512 features x 8 levels and, with
+    `lc`, the bench's loop-closing settings. Returns (tracker, cfg)."""
     from openmavis_tpu_torch import scene
     from openmavis_tpu_torch.frontend import extractor
     from openmavis_tpu_torch.imu import preintegration as pre_mod
-    from openmavis_tpu_torch.io import evaluation
     from openmavis_tpu_torch.optim.reprojection import RigParams
     from openmavis_tpu_torch.pipeline import streaming_vi
 
-    t0 = time.perf_counter()
-    rig_np, frames, R_wb, t_wb, batches = scene.make_sequence(
-        N_FRAMES, orbit_frac=1.25, kind_name="kb8")
-    print("scene rendered in %.1f s" % (time.perf_counter() - t0))
+    rig_np = scene.build_rig("kb8")
     rig = RigParams(rig_np["kind"], torch.as_tensor(rig_np["params"]),
                     torch.as_tensor(rig_np["R_cb"]),
                     torch.as_tensor(rig_np["t_cb"]))
+    kw = scene.bench_config_kwargs(n_frames, max_kf=max_kf, max_mp=max_mp)
+    kw.update(overrides)
     cfg = streaming_vi.VIStreamConfig(
-        orb=extractor.OrbConfig(n_features=512, n_levels=8),
-        **scene.bench_config_kwargs(N_FRAMES))
+        orb=extractor.OrbConfig(n_features=N_FEATURES, n_levels=8), **kw)
     noise = pre_mod.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS)
     # the reference bench's loop-closing settings
     lc_kw = dict(score_min=30, temporal=2)
     tr = streaming_vi.StreamingVITracker(rig, cfg, noise, seed=0,
                                          device=dev,
                                          device_lc=lc_kw if lc else False)
+    return tr, cfg
+
+
+def drive(torch, mc, tr, frames, batches, stages: bool = False,
+          on_frame=None):
+    """Push every frame through the tracker with the launch counts set to
+    0 just before and read just after. Returns a dict: frame_ms, the
+    frames on which the loop closer or the step ran something beside plain
+    tracking (`lc_frames`, `step_frames`), the launch counts by (kernel,
+    N, M, layout), and the stage timer."""
     timer = StageTimer(torch)
     if stages:
         wrap_stages(timer, tr)
-    frame_ms, lc_frames = [], []
+    frame_ms, lc_frames, step_frames = [], [], []
     torch.cuda.synchronize()
     mc.reset_launch_counts()
     try:
-        for i in range(N_FRAMES):
+        for i in range(len(frames)):
             t, b = batches[i]
             t1 = time.perf_counter()
             tr.push(frames[i], t, b)
@@ -764,33 +891,41 @@ def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
             if tr.lc_events:
                 lc_frames.append({"frame": i, "ms": frame_ms[-1],
                                   "events": list(tr.lc_events)})
+            if tr.step_events:
+                step_frames.append({"frame": i, "ms": frame_ms[-1],
+                                    "events": list(tr.step_events)})
+            if on_frame is not None:
+                on_frame(i, frame_ms[-1])
     finally:
         timer.restore()
-    launches = mc.launch_count()
-    by_entry = {name: mc.launch_count(name)
-                for name in ("hamming_best2", "projection_best2")}
-    counts = dict(mc.launches_by_shape)
-    by_shape = {"%s %dx%d %s" % k: v for k, v in sorted(counts.items())}
-    cf = cfg.n_cams * 512
+    return {"frame_ms": frame_ms, "lc_frames": lc_frames,
+            "step_frames": step_frames,
+            "counts": dict(mc.launches_by_shape), "timer": timer}
 
-    stage = match_bank_times(torch, dev, tr, frames[-1])
+
+def content(torch, tr, run: dict, n_frames: int, t_wb, lc: bool,
+            stages: bool, card: str) -> dict:
+    """The content fields of the reference bench (`bench.py`'s `extra`),
+    the frame times and the launch counts of one driven path."""
+    from openmavis_tpu_torch import scene
+    from openmavis_tpu_torch.io import evaluation
+    counts = run["counts"]
     snap = tr.snapshot()
     t_est, _, p_est = tr.get_trajectory()
     ok = snap["ok"][:len(t_est)]
     res = evaluation.ate_rmse(t_est[ok], p_est[ok],
-                              np.arange(N_FRAMES) / scene.FPS_IN, t_wb,
+                              np.arange(n_frames) / scene.FPS_IN, t_wb,
                               with_scale=True)
-    steady = np.asarray(frame_ms[10:])
+    steady = np.asarray(run["frame_ms"][10:])
     m = tr.map
-    map_finite = bool(torch.isfinite(m.kf_R).all()
-                      & torch.isfinite(m.kf_t).all()
-                      & torch.isfinite(m.mp_pos).all())
     out = {
         "loop_closing": lc,
+        "frames": len(run["frame_ms"]),
         "frames_tracked": int(ok.sum()),
         "n_keyframes": int(snap["n_kf"]),
         "n_landmarks": int(snap["n_mp"]),
         "n_obs": int(snap["n_obs"]),
+        "obs_dropped": int(snap["obs_dropped"]),
         "imu_initialized": bool(snap["imu_ok"]),
         "viba_stage": int(snap["viba_stage"]),
         "ate_rmse_m": float(res["rmse"]),
@@ -799,15 +934,23 @@ def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
         "frame_ms_median": float(np.median(steady)),
         "frame_ms_p90": float(np.percentile(steady, 90)),
         "frame_ms_max": float(steady.max()),
-        "map_finite": map_finite,
-        "matcher_cuda_launches": int(launches),
-        "matcher_cuda_launches_by_entry": by_entry,
-        "matcher_cuda_launches_by_shape": by_shape,
-        "match_bank": stage,
+        "map_finite": bool(torch.isfinite(m.kf_R).all()
+                           & torch.isfinite(m.kf_t).all()
+                           & torch.isfinite(m.mp_pos).all()),
+        "trajectory_finite": bool(np.all(np.isfinite(p_est))),
+        "matcher_cuda_launches": int(sum(counts.values())),
+        "matcher_cuda_launches_by_entry": {
+            name: sum(v for k, v in counts.items() if k[0] == name)
+            for name in ("hamming_best2", "projection_best2")},
+        "matcher_cuda_launches_by_shape": {
+            "%s %dx%d %s" % k: v for k, v in sorted(counts.items())},
+        "step_frames": run["step_frames"],
         "stage_timers": stages,
         "card": card,
     }
     if lc:
+        lc_frames = run["lc_frames"]
+
         def ms_of(event):
             return [f["ms"] for f in lc_frames if event in f["events"]]
 
@@ -825,39 +968,326 @@ def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
             loop_edges=[[int(i), int(j)] for i, j, v in zip(
                 m.loop_i.tolist(), m.loop_j.tolist(),
                 m.loop_valid.tolist()) if v])
-    print(json.dumps(out))
-    if stages:
-        print(json.dumps({"stages": timer.table(), "card": card,
-                          "frames": N_FRAMES, "loop_closing": lc}))
+    return out
+
+
+def common_checks(out: dict, min_tracked: int) -> list:
+    """The gates every path shares, as (passed, what) pairs."""
+    by_entry = out["matcher_cuda_launches_by_entry"]
     checks = [
-        (out["frames_tracked"] >= 152, "frames_tracked >= 152"),
+        (out["frames_tracked"] >= min_tracked,
+         "frames_tracked >= %d" % min_tracked),
         (out["imu_initialized"] and out["viba_stage"] >= 1,
          "IMU initialized with viba_stage >= 1"),
         (out["ate_rmse_m"] <= 0.15, "ate_rmse_m <= 0.15"),
         (abs(out["horn_scale"] - 1.0) <= 0.1, "|horn_scale - 1| <= 0.1"),
-        (launches >= 4 * (N_FRAMES - 1), "matcher_cuda launches >= 4x159"),
-        (by_entry["projection_best2"] >= 4 * (N_FRAMES - 1),
-         "projection_best2 launches >= 4x159"),
+        (by_entry["projection_best2"] >= 4 * min_tracked,
+         "projection_best2 launches >= 4 a tracked frame"),
         (by_entry["hamming_best2"] >= 1, "hamming_best2 launched"),
-        (np.all(np.isfinite(p_est)), "finite trajectory"),
-        (map_finite, "finite map"),
+        (out["trajectory_finite"], "finite trajectory"),
+        (out["map_finite"], "finite map"),
     ]
-    if lc:
-        attempts = int(out["lc_stage_max"][2])
-        kf_pairs = [counts.get(("hamming_best2", cf, cf, layout), 0)
-                    for layout in ("rows", "T")]
+    if out["loop_closing"]:
         checks += [
             (out["loop_closures"] >= 1, "loop_closures >= 1"),
-            (attempts >= 1 and kf_pairs == [attempts, attempts],
-             "hamming_best2 at %dx%d launched once directly and once "
-             "through mask.T per attempt" % (cf, cf)),
             (len(out["lc_correction_frame_ms"]) == out["loop_closures"],
              "one correction frame per loop closure"),
         ]
+    return checks
+
+
+def gate(name: str, checks: list) -> None:
     failed = [what for good, what in checks if not good]
     if failed:
-        raise AssertionError("main path gates failed: " + ", ".join(failed))
+        raise AssertionError("%s gates failed: %s" % (name,
+                                                      ", ".join(failed)))
+
+
+def print_stages(run: dict, out: dict, path: str) -> None:
+    print(json.dumps({"stages": run["timer"].table(), "path": path,
+                      "card": out["card"], "frames": out["frames"],
+                      "loop_closing": out["loop_closing"]}))
+
+
+def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
+                    stages: bool = False):
+    from openmavis_tpu_torch import scene
+
+    t0 = time.perf_counter()
+    _, frames, _, t_wb, batches = scene.make_sequence(
+        N_FRAMES, orbit_frac=1.25, kind_name="kb8")
+    print("scene rendered in %.1f s" % (time.perf_counter() - t0))
+    tr, cfg = make_tracker(torch, dev, N_FRAMES, lc)
+    run = drive(torch, mc, tr, frames, batches, stages)
+    counts = run["counts"]
+    out = content(torch, tr, run, N_FRAMES, t_wb, lc, stages, card)
+    out["path"] = "flagship"
+    out["match_bank"] = match_bank_times(torch, dev, tr, frames[-1])
+    print(json.dumps(out))
+    if stages:
+        print_stages(run, out, "flagship")
+    checks = common_checks(out, 152)
+    if lc:
+        cf = cfg.n_cams * N_FEATURES
+        attempts = int(out["lc_stage_max"][2])
+        kf_pairs = [counts.get(("hamming_best2", cf, cf, layout), 0)
+                    for layout in ("rows", "T")]
+        checks.append(
+            (attempts >= 1 and kf_pairs == [attempts, attempts],
+             "hamming_best2 at %dx%d launched once directly and once "
+             "through mask.T per attempt" % (cf, cf)))
+    gate("main path", checks)
     return counts
+
+
+class RecycleProbe:
+    """Wraps the step's `recycle` and records, for each call, what the
+    slab and the trajectory ring look like right after it (before the new
+    keyframe and its BA touch them): the keyframe count, whether the used
+    slots are all valid, whether the map is finite, and how far the world
+    pose of any recorded frame moved across the call."""
+
+    def __init__(self, torch, tr):
+        self.torch, self.calls = torch, []
+        self._step, self._fn = tr._step, tr._step.recycle
+        tr._step.recycle = self
+
+    @staticmethod
+    def _world(m, c):
+        tr = c.traj
+        n = int(min(int(tr.idx), tr.time.shape[0]))
+        ref = tr.ref[:n].long()
+        return m.kf_t[ref] + (m.kf_R[ref] @ tr.t_rel[:n, :, None])[..., 0]
+
+    def __call__(self, m, c):
+        torch = self.torch
+        before = self._world(m, c)
+        n_before = int(m.n_kf)
+        m2, c2 = self._fn(m, c)
+        after = self._world(m2, c2)
+        n_kf = int(m2.n_kf)
+        self.calls.append({
+            "n_kf_before": n_before, "n_kf_after": n_kf,
+            "n_landmarks_after": int(m2.n_mp),
+            "packed": bool(m2.kf_valid[:n_kf].all()
+                           & ~m2.kf_valid[n_kf:].any()),
+            "finite": bool(torch.isfinite(m2.kf_R).all()
+                           & torch.isfinite(m2.kf_t).all()
+                           & torch.isfinite(m2.mp_pos).all()
+                           & torch.isfinite(after).all()),
+            "chain_valid": int(c2.chain_valid.sum()),
+            "frames_recorded": int(before.shape[0]),
+            "max_move_m": float((after - before).norm(dim=1).max())})
+        return m2, c2
+
+    def restore(self):
+        self._step.recycle = self._fn
+
+
+KIDNAP_ATTEMPTS = 3
+
+
+def kidnap_check(torch, dev, tr, images, R_own, p_own,
+                 attempts: int = KIDNAP_ATTEMPTS) -> dict:
+    """Relocalization with no pose prior on the tracker's map, from camera
+    0's features of `images`, as the LOST branch runs it: `relocalize_step`
+    proposes a pose, and one whole-map tracking step from that pose alone
+    refines it. Up to `attempts` draws of the RANSAC samples, as that many
+    LOST frames would make. `R_own`, `p_own`: the tracker's own body pose
+    for that frame. The proposal is the pose of camera 0's centre with the
+    body's orientation (the bearings are rotated into the body frame, not
+    shifted) and comes from a linear solve: it is held against the
+    tracker's own camera-0 pose and reported, and the refined pose is held
+    against the body pose. Also the time and the peak memory of the first
+    call, most of it the dense Hamming product of the 512 features
+    against every feature of every keyframe."""
+    from openmavis_tpu_torch.pipeline import multi_tracking as mt
+    from openmavis_tpu_torch.pipeline import tracking as trk
+    step, m, rig = tr._step, tr.map, tr._step.rig
+    bank = step.extract_bank(
+        torch.as_tensor(np.asarray(images)).to(dev).to(torch.float32))
+    feats = step.band0_feats(bank)
+    R_own = torch.as_tensor(R_own, dtype=torch.float32, device=dev)
+    p_own = torch.as_tensor(p_own, dtype=torch.float32, device=dev)
+    cam0 = p_own + R_own @ (-(rig.R_cb[0].T @ rig.t_cb[0]))
+    radius = torch.tensor(step.cfg.match_radius, device=dev)
+
+    def angle_deg(R):
+        cos = (torch.trace(R.T @ R_own) - 1.0) / 2.0
+        return float(torch.rad2deg(torch.acos(torch.clamp(cos, -1.0, 1.0))))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    K, F = m.kf_obs.shape
+    out = {"valid_features": int(feats.valid.sum()),
+           "hamming_matrix_shape": [int(feats.desc.shape[0]), K * F],
+           "success": False, "attempts": []}
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ok, R, t, n_in = trk.relocalize_step(m, feats, gen, rig.kind, rig)
+        torch.cuda.synchronize()
+        if attempt == 0:
+            out["ms"] = (time.perf_counter() - t0) * 1e3
+            out["peak_bytes"] = int(torch.cuda.max_memory_allocated() - base)
+        rec = {"success": bool(ok), "n_inliers": int(n_in),
+               "proposal_dist_m": float((t - cam0).norm()),
+               "proposal_angle_deg": angle_deg(R)}
+        out["attempts"].append(rec)
+        if not rec["success"]:
+            continue
+        R2, t2, _, n_track, _, _ = mt.track_step_multi(
+            m, bank, R, t, rig.kind, step.C, rig, step.W, step.H, radius,
+            -1, po_rounds=step.cfg.po_rounds, po_iters=step.cfg.po_iters)
+        rec.update(n_tracked=int(n_track),
+                   dist_m=float((t2 - p_own).norm()),
+                   angle_deg=angle_deg(R2))
+        out.update(success=True, dist_m=rec["dist_m"],
+                   angle_deg=rec["angle_deg"])
+        break
+    return out
+
+
+def phase_recycle_blackout(torch, dev, mc, card: str, stages: bool = False):
+    """The second main path: the flagship configuration on a longer scene
+    of the same angular step with six black frames in the middle."""
+    from openmavis_tpu_torch import scene
+
+    n = N_FRAMES_2
+    t0 = time.perf_counter()
+    _, frames, _, t_wb, batches = scene.make_sequence(
+        n, orbit_frac=1.25 * (n - 1) / (N_FRAMES - 1), kind_name="kb8")
+    for i in BLACKOUT:
+        frames[i] = 0
+    print("second scene (%d frames) rendered in %.1f s"
+          % (n, time.perf_counter() - t0))
+    tr, cfg = make_tracker(torch, dev, n, lc=True)
+    probe = RecycleProbe(torch, tr)
+    try:
+        run = drive(torch, mc, tr, frames, batches, stages)
+    finally:
+        probe.restore()
+    counts = run["counts"]
+    out = content(torch, tr, run, n, t_wb, True, stages, card)
+    out["path"] = "recycle_blackout"
+    out["recycles"] = probe.calls
+
+    def frames_with(event):
+        return [f["frame"] for f in run["step_frames"]
+                if event in f["events"]]
+
+    def ms_with(event):
+        return [f["ms"] for f in run["step_frames"] if event in f["events"]]
+
+    reloc = frames_with("reloc")
+    lost = frames_with("lost")
+    tracked = tr.snapshot()["ok"]
+    back = next((i for i in range(BLACKOUT[-1] + 1, n) if tracked[i]), None)
+    out.update(
+        blackout=[BLACKOUT[0], BLACKOUT[-1]],
+        lost_frames=lost, reloc_frames=reloc,
+        reloc_ok_frames=frames_with("reloc_ok"),
+        recycle_frames=frames_with("recycle"),
+        decimate_frames=frames_with("decimate"),
+        first_ok_after_blackout=back,
+        recycle_frame_ms=ms_with("recycle"),
+        lost_frame_ms=ms_with("reloc"))
+    f0, cf = N_FEATURES, cfg.n_cams * N_FEATURES
+    # the gate is on the last frame; four earlier ones, one draw each,
+    # show how far the proposal and the refined pose scatter
+    _, R_traj, p_traj = tr.get_trajectory()
+    out["kidnap"] = kidnap_check(torch, dev, tr, frames[-1], R_traj[-1],
+                                 p_traj[-1])
+    out["kidnap_other_frames"] = [
+        dict(frame=i, **kidnap_check(torch, dev, tr, frames[i], R_traj[i],
+                                     p_traj[i], attempts=1))
+        for i in (n - 35, n - 20, n - 10, n - 5)]
+    print(json.dumps(out))
+    if stages:
+        print_stages(run, out, "recycle_blackout")
+    k = out["kidnap"]
+    print("relocalize_step on the final map: hamming_matrix %d x %d, peak "
+          "memory of the call %d B, %.1f ms"
+          % (*k["hamming_matrix_shape"], k["peak_bytes"], k["ms"]))
+    checks = common_checks(out, n - len(BLACKOUT) - 10) + [
+        (len(probe.calls) >= 1, "at least one recycle"),
+        (all(r["n_kf_after"] < cfg.max_kf for r in probe.calls),
+         "n_kf < %d after a recycle" % cfg.max_kf),
+        (all(r["packed"] for r in probe.calls),
+         "kf_valid[:n_kf] all true after a recycle"),
+        (all(r["finite"] for r in probe.calls),
+         "map and trajectory finite after a recycle"),
+        (all(r["max_move_m"] < 1e-3 for r in probe.calls),
+         "no recorded frame moves by 1e-3 m across a recycle"),
+        (len(lost) >= len(BLACKOUT) and len(reloc) >= len(BLACKOUT),
+         "at least %d LOST frames" % len(BLACKOUT)),
+        (back is not None and back <= BLACKOUT[-1] + 10,
+         "tracking again within 10 frames of the images' return"),
+        # relocalization matches the frame against each of its three
+        # candidate keyframes, whatever the frame holds: one direct and
+        # one mask.T launch a candidate
+        (counts.get(("hamming_best2", f0, cf, "rows"), 0) == 3 * len(reloc)
+         and counts.get(("hamming_best2", cf, f0, "T"), 0) == 3 * len(reloc),
+         "hamming_best2 launched 3 times at %dx%d and 3 times at %dx%d "
+         "through mask.T per LOST frame" % (f0, cf, cf, f0)),
+        (k["success"] and k["dist_m"] <= 0.10 and k["angle_deg"] <= 2.0,
+         "kidnap check: relocalized and tracked from there within 0.10 m "
+         "and 2 deg"),
+    ]
+    gate("recycle + blackout path", checks)
+    return counts
+
+
+def phase_long(torch, dev, mc, card: str, out_dir: str) -> dict:
+    """The reference package's long-run configuration on the port. No
+    gates: a measurement. Progress goes to `out_dir`/long_progress.jsonl
+    every 25 frames, so that a run cut by a time limit still says how far
+    it got and what a frame cost at that map size; the result line goes to
+    `out_dir`/long.json."""
+    from openmavis_tpu_torch import scene
+
+    n = LONG["n_frames"]
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    _, frames, _, t_wb, batches = scene.make_sequence(
+        n, orbit_frac=LONG["orbit_frac"], kind_name="kb8")
+    print("long scene (%d frames) rendered in %.1f s"
+          % (n, time.perf_counter() - t0), flush=True)
+    tr, cfg = make_tracker(torch, dev, n, lc=True, max_kf=LONG["max_kf"],
+                           max_mp=LONG["max_mp"],
+                           track_map_cap=LONG["track_map_cap"])
+    t_run = time.perf_counter()
+    window = []
+
+    def progress(i, ms):
+        window.append(ms)
+        if (i + 1) % 25 == 0 or i + 1 == n:
+            snap = tr.snapshot()
+            line = {"frame": i, "elapsed_s": time.perf_counter() - t_run,
+                    "frame_ms_median_last_25": float(np.median(window)),
+                    "frame_ms_max_last_25": float(max(window)),
+                    "n_keyframes": int(snap["n_kf"]),
+                    "n_landmarks": int(snap["n_mp"]),
+                    "n_obs": int(snap["n_obs"]),
+                    "tracked": int(snap["ok"][:i + 1].sum()),
+                    "loop_closures": int(snap["n_loops"]), "card": card}
+            window.clear()
+            with open(os.path.join(out_dir, "long_progress.jsonl"),
+                      "a") as f:
+                f.write(json.dumps(line) + "\n")
+            print(json.dumps(line), flush=True)
+
+    run = drive(torch, mc, tr, frames, batches, on_frame=progress)
+    out = content(torch, tr, run, n, t_wb, True, False, card)
+    out.update(path="long", config=dict(LONG, obs_cap=cfg.obs_cap),
+               run_s=time.perf_counter() - t_run,
+               match_bank=match_bank_times(torch, dev, tr, frames[-1]))
+    with open(os.path.join(out_dir, "long.json"), "w") as f:
+        json.dump(out, f)
+    print(json.dumps(out))
+    return run["counts"]
 
 
 def main() -> int:
@@ -886,20 +1316,32 @@ def main() -> int:
     if "--kernels-only" in argv:
         print(json.dumps({"kernels": kernels}))
         return 0
-    runs = int(argv[argv.index("--main-path-runs") + 1]) \
-        if "--main-path-runs" in argv else 1
-    for _ in range(runs):
-        counts = phase_main_path(torch, dev, mc, card,
-                                 lc="--no-lc" not in argv,
-                                 stages="--stages" in argv)
+    stages = "--stages" in argv
+    paths = {}
+    if "--long" in argv:
+        out_dir = argv[argv.index("--out") + 1] if "--out" in argv \
+            else os.path.join(REPO, "chip_smoke_out")
+        paths["long"] = phase_long(torch, dev, mc, card, out_dir)
+    else:
+        runs = int(argv[argv.index("--main-path-runs") + 1]) \
+            if "--main-path-runs" in argv else 1
+        for _ in range(runs):
+            paths["flagship"] = phase_main_path(
+                torch, dev, mc, card, lc="--no-lc" not in argv,
+                stages=stages)
+        paths["recycle_blackout"] = phase_recycle_blackout(
+            torch, dev, mc, card, stages=stages)
     for k in kernels:
         n, m = map(int, k["shape"].split("x"))
-        k["launches"] = counts.get((k["name"], n, m, k["mask_layout"]), 0)
-    # every launch of the run belongs to one of the records
-    listed = sum(k["launches"] for k in kernels)
-    if listed != sum(counts.values()):
-        raise AssertionError("the main path launched a kernel at a shape "
-                             "with no record: %s" % sorted(counts))
+        key = (k["name"], n, m, k["mask_layout"])
+        k["launches_by_path"] = {p: c.get(key, 0) for p, c in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+    # every launch of every path belongs to one of the records
+    launched = sum(sum(c.values()) for c in paths.values())
+    if sum(k["launches"] for k in kernels) != launched:
+        raise AssertionError(
+            "a path launched a kernel at a shape with no record: %s"
+            % {p: sorted(c) for p, c in paths.items()})
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,6 @@
 """Multi-camera visual-inertial tracking and mapping steps (port of
 `concat_bands`, `_match_bank`, `_feat_mp_from`, `_compact_matches`,
-`track_step_multi`, `track_step_multi_vi`, `_lap`, `stereo_spawn`,
+`_local_map_compact`, `track_step_multi`, `track_step_multi_vi`, `_lap`, `stereo_spawn`,
 `_spawn_pair_band`, `temporal_spawn_multi`, `bind_landmarks_multi`,
 `vi_window_ba_step` and `imu_init_step` of
 `openmavis_tpu/pipeline/multi_tracking.py`; reference: the multi-camera
@@ -84,51 +84,104 @@ def _compact_matches(matched, cap: int):
     return rows, taken
 
 
+def _local_map_compact(m: ms.MapState, min_last_kf: int, cap: int):
+    """Gather the <= `cap` most recently observed valid landmarks into a
+    compact sub-map for per-frame tracking, so that projection, matching
+    and every residual evaluation cost O(cap) whatever the slab's size
+    (the reference tracks against the local map of the covisible keyframe
+    set, Tracking::UpdateLocalPoints, src/Tracking.cc:3462, never the whole
+    atlas). Ties between landmarks of one keyframe go to the lower id.
+    Returns (sub_map, inv [cap] int64 slab ids, used [cap] bool)."""
+    sel = m.mp_valid & (m.mp_last_kf >= min_last_kf)
+    score = torch.where(sel, m.mp_last_kf, -1)
+    inv = torch.sort(score, descending=True, stable=True).indices[:cap]
+    used = score[inv] >= 0
+    sub = m._replace(
+        mp_pos=m.mp_pos[inv], mp_desc=m.mp_desc[inv],
+        mp_normal=m.mp_normal[inv], mp_dmin=m.mp_dmin[inv],
+        mp_dmax=m.mp_dmax[inv], mp_valid=used,
+        mp_last_kf=m.mp_last_kf[inv], mp_first_kf=m.mp_first_kf[inv],
+        mp_visible=m.mp_visible[inv], mp_found=m.mp_found[inv])
+    return sub, inv, used
+
+
+def _track_matches(m: ms.MapState, bank, R_pred, t_pred, rig_kind: int,
+                   n_cams: int, rig: RigParams, img_w: float, img_h: float,
+                   radius, min_last_kf: int, map_cap: int, optimize):
+    """The part the two tracking steps share: match the (capped) local map
+    into the bank, compact the matches to C*F rows, hand them to
+    `optimize(points, cam, uv, sigma2, taken) -> (result, inlier, n_in)`
+    and express the outcome in slab ids.
+    Returns (result, feat_mp [C*F], n_in, vis [M], keep [M])."""
+    CF = bank["xy"].shape[0]
+    M = m.mp_pos.shape[0]
+    compact = bool(map_cap) and map_cap < M
+    if compact:
+        mt_, inv, used = _local_map_compact(m, min_last_kf, map_cap)
+    else:
+        mt_, used = m, m.mp_valid
+    idx, matched = _match_bank(mt_, bank, R_pred, t_pred, rig_kind, n_cams,
+                               rig, img_w, img_h, radius, min_last_kf)
+    safe = torch.where(matched, idx, 0).to(torch.int64)
+    rows, taken = _compact_matches(matched & used, CF)
+    result, inlier_c, n_in = optimize(
+        mt_.mp_pos[rows], bank["cam"][safe][rows], bank["xy"][safe][rows],
+        bank["sigma2"][safe][rows], taken)
+    inlier = scatter_max(torch.zeros_like(matched), rows, inlier_c & taken)
+    vis, keep = matched, matched & inlier
+    feat_mp = _feat_mp_from(idx, keep, CF, matched.shape[0])
+    if compact:
+        # back to slab ids
+        feat_mp = torch.where(
+            feat_mp >= 0,
+            inv[torch.clamp(feat_mp, min=0).to(torch.int64)].to(
+                torch.int32), -1)
+        zeros = torch.zeros(M, dtype=torch.bool, device=matched.device)
+        vis = scatter_max(zeros, inv, vis & used)
+        keep = scatter_max(zeros, inv, keep & used)
+    return result, feat_mp, n_in, vis, keep
+
+
 def track_step_multi(m: ms.MapState, bank, R_pred, t_pred, rig_kind: int,
                      n_cams: int, rig: RigParams, img_w: float,
                      img_h: float, radius, min_last_kf: int = -1,
-                     po_rounds: int = 4, po_iters: int = 7):
+                     map_cap: int = 0, po_rounds: int = 4,
+                     po_iters: int = 7):
     """Local-map projection tracking across all bands + visual pose
-    optimization. Returns (R, t, feat_mp [C*F], n_in, vis [M], keep [M])."""
-    CF = bank["xy"].shape[0]
-    M = m.mp_pos.shape[0]
-    idx, matched = _match_bank(m, bank, R_pred, t_pred, rig_kind, n_cams,
-                               rig, img_w, img_h, radius, min_last_kf)
-    safe = torch.where(matched, idx, 0).to(torch.int64)
-    rows, taken = _compact_matches(matched & m.mp_valid, CF)
-    R, t, inlier_c, n_in = pose_opt.pose_optimization(
-        R_pred, t_pred, m.mp_pos[rows], bank["cam"][safe][rows],
-        bank["xy"][safe][rows], bank["sigma2"][safe][rows], taken, rig,
-        rounds=po_rounds, iters_per_round=po_iters)
-    inlier = scatter_max(torch.zeros_like(matched), rows, inlier_c & taken)
-    keep = matched & inlier
-    return R, t, _feat_mp_from(idx, keep, CF, M), n_in, matched, keep
+    optimization. `map_cap` > 0 caps the tracked landmark set (see
+    `_local_map_compact`).
+    Returns (R, t, feat_mp [C*F], n_in, vis [M], keep [M])."""
+    def optimize(points, cam, uv, sigma2, taken):
+        R, t, inlier_c, n_in = pose_opt.pose_optimization(
+            R_pred, t_pred, points, cam, uv, sigma2, taken, rig,
+            rounds=po_rounds, iters_per_round=po_iters)
+        return (R, t), inlier_c, n_in
+
+    (R, t), feat_mp, n_in, vis, keep = _track_matches(
+        m, bank, R_pred, t_pred, rig_kind, n_cams, rig, img_w, img_h,
+        radius, min_last_kf, map_cap, optimize)
+    return R, t, feat_mp, n_in, vis, keep
 
 
 def track_step_multi_vi(m: ms.MapState, bank, anchor, state_pred, pre,
                         rig_kind: int, n_cams: int, rig: RigParams,
                         img_w: float, img_h: float, radius,
-                        min_last_kf: int = -1, po_rounds: int = 4,
-                        po_iters: int = 7):
+                        min_last_kf: int = -1, map_cap: int = 0,
+                        po_rounds: int = 4, po_iters: int = 7):
     """VI local-map tracking: match from the IMU-predicted pose, then
     optimize the full 15-dof state against the matches, the
     preintegration edge to the anchor and the bias random walk
     (reference: PoseInertialOptimizationLastFrame, src/Optimizer.cc:5580).
+    `map_cap` as in `track_step_multi`.
     Returns (state, feat_mp, n_in, vis, keep)."""
-    CF = bank["xy"].shape[0]
-    M = m.mp_pos.shape[0]
-    idx, matched = _match_bank(m, bank, state_pred.R, state_pred.p,
-                               rig_kind, n_cams, rig, img_w, img_h, radius,
-                               min_last_kf)
-    safe = torch.where(matched, idx, 0).to(torch.int64)
-    rows, taken = _compact_matches(matched & m.mp_valid, CF)
-    state, inlier_c, n_in = pose_opt.pose_inertial_optimization(
-        state_pred, anchor, pre, m.mp_pos[rows], bank["cam"][safe][rows],
-        bank["xy"][safe][rows], bank["sigma2"][safe][rows], taken, rig,
-        rounds=po_rounds, iters_per_round=po_iters)
-    inlier = scatter_max(torch.zeros_like(matched), rows, inlier_c & taken)
-    keep = matched & inlier
-    return state, _feat_mp_from(idx, keep, CF, M), n_in, matched, keep
+    def optimize(points, cam, uv, sigma2, taken):
+        return pose_opt.pose_inertial_optimization(
+            state_pred, anchor, pre, points, cam, uv, sigma2, taken, rig,
+            rounds=po_rounds, iters_per_round=po_iters)
+
+    return _track_matches(
+        m, bank, state_pred.R, state_pred.p, rig_kind, n_cams, rig, img_w,
+        img_h, radius, min_last_kf, map_cap, optimize)
 
 
 def _lap(cfg, cam: int):

@@ -8,9 +8,13 @@ tracking with visual or 15-dof inertial pose optimization, the keyframe
 decision; on keyframes the mapper chain (stereo + temporal spawn, bind,
 fuse, cull, chain welding, visual or VI window BA) and the staged IMU
 initialization (InertialOptimization -> gravity-align -> FullInertialBA on
-the VIBA1/VIBA2 schedule). With `device_lc` the device loop closer
-(`streaming_lc.make_lc_step`) runs after every frame's step, with the
-amortized post-loop FullInertialBA.
+the VIBA1/VIBA2 schedule). A full keyframe slab is recycled before the
+insertion (decimate if culling freed nothing, compact keyframes and
+landmarks, weld the preintegration chain, re-base the trajectory ring). A
+frame that fails to track puts the tracker in LOST: it coasts on the IMU
+and every LOST frame tries `tracking.relocalize_step` for a pose proposal.
+With `device_lc` the device loop closer (`streaming_lc.make_lc_step`) runs
+after every frame's step, with the amortized post-loop FullInertialBA.
 
 The reference package runs the step as one jitted program under
 `lax.cond`/`lax.switch`; here each branch is a Python branch on a device
@@ -18,16 +22,16 @@ scalar, which reads it back to the host (a sync per decision).
 
 Not ported yet, each raising NotImplementedError and queued in ROADMAP.md:
 the cross-map weld (`secondary_map`, `merge_kw`), host-policy loop closing
-(`loop_closer`, `maybe_close_loop`), `run_global_ba`, LOST-mode
-relocalization, slab recycling, the mono two-view init, `use_depth`,
-`dist`, `frames_per_dispatch > 1` and `track_map_cap > 0`.
+(`loop_closer`, `maybe_close_loop`), `run_global_ba`, the mono two-view
+init, `use_depth`, `dist` and `frames_per_dispatch > 1`.
 
 Reference parity map: per-frame flow Tracking::GrabImageMulti
 src/Tracking.cc:1410; IMU preintegration :1625; prediction :1723; VI pose
 optimization Optimizer::PoseInertialOptimizationLastFrame
 src/Optimizer.cc:5580; keyframe pipeline src/LocalMapping.cc:395-786;
 staged IMU init LocalMapping.cc:203-265, 1255; KF culling + chain merge
-LocalMapping.cc:974 + ImuTypes.cc:241-263.
+LocalMapping.cc:974 + ImuTypes.cc:241-263; relocalization
+Tracking::Relocalization src/Tracking.cc:3543.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..frontend import extractor
+from ..geometry import lie
 from ..imu import preintegration as pre_mod
 from ..optim import pose_opt
 from ..optim.reprojection import RigParams
@@ -213,9 +218,6 @@ class VIStep:
         if cfg.frames_per_dispatch > 1:
             raise NotImplementedError(_LATER.format(
                 "frames_per_dispatch > 1 chunking"))
-        if cfg.track_map_cap > 0:
-            raise NotImplementedError(_LATER.format(
-                "track_map_cap > 0, multi_tracking._local_map_compact"))
         self.cfg = cfg
         self.rig = rig
         self.noise = noise
@@ -225,15 +227,106 @@ class VIStep:
         self.CF = self.C * self.F
         self.W, self.H = float(cfg.img_w), float(cfg.img_h)
         self.Kmax = cfg.max_kf
+        # what the last step ran beside plain tracking: "reloc" (began
+        # LOST, so `relocalize_step` ran), "reloc_ok" (it found a pose),
+        # "lost" (the frame ended without a track), "recycle" (the slab
+        # was full) and "decimate" (culling had freed nothing)
+        self.events: tuple = ()
 
     # ---------------- helpers ----------------
     def extract_bank(self, images):
         return mt.concat_bands(extractor.extract_multicam(images, self.orb))
 
+    def band0_feats(self, bank) -> extractor.Features:
+        """Camera 0's band of the bank as `Features`."""
+        sl = slice(0, self.F)
+        zero = torch.zeros(self.F, device=bank["xy"].device)
+        return extractor.Features(
+            xy=bank["xy"][sl], response=zero, angle=zero,
+            level=bank["level"][sl], sigma2=bank["sigma2"][sl],
+            desc=bank["desc"][sl], valid=bank["valid"][sl])
+
     def min_last_of(self, c) -> int:
         if self.cfg.local_map_window is None:
             return -1
         return int(c.last_kf_slot) - self.cfg.local_map_window
+
+    # ------------- chain welding across keyframe compaction -------------
+    def weld_chain(self, chain, chain_valid, kf_valid_old, new_of_old):
+        """Re-express the per-keyframe preintegration chain after
+        compaction: the interval into each surviving keyframe is the
+        composition of every old interval since the previous survivor (the
+        closed form of IMU::Preintegrated::MergePrevious,
+        src/ImuTypes.cc:241-263), valid when all of them were. The
+        reference package scans the slots on the device; here the two
+        masks are read once and the loop runs on the host.
+        Returns (chain', chain_valid')."""
+        K = self.Kmax
+        dev = chain_valid.device
+        ident = pre_mod.init_preintegrated(torch.zeros(6, device=dev))
+        acc, ok_all = ident, True
+        slots, entries, oks = [], [], []
+        for k, (ev, surv) in enumerate(zip(chain_valid.tolist(),
+                                           kf_valid_old.tolist())):
+            if ev:
+                acc = pre_mod.compose(acc, pre_mod.rebias(
+                    pre_mod.chain_get(chain, k), acc.b))
+            ok_all = ok_all and ev
+            if surv:
+                slots.append(k)
+                entries.append(acc)
+                oks.append(ok_all)
+                acc, ok_all = ident, True
+        chain2 = pre_mod.chain_allocate(K, device=dev)
+        valid2 = torch.zeros(K, dtype=torch.bool, device=dev)
+        if slots:
+            tgt = new_of_old[torch.tensor(slots, device=dev)].to(torch.int64)
+            chain2 = pre_mod.Preintegrated(*(
+                set_rows(c2, tgt, torch.stack(xs))
+                for c2, xs in zip(chain2, zip(*entries))))
+            valid2 = set_rows(valid2, tgt, torch.tensor(oks, device=dev))
+        return chain2, valid2
+
+    def recycle(self, m, c):
+        """Free keyframe and landmark slots when the slab is full:
+        decimate if redundancy culling freed nothing, compact, weld the
+        chain, and re-base the trajectory ring and `last_kf_slot`.
+
+        A ring entry whose reference keyframe goes is re-expressed
+        relative to the nearest preceding survivor, as
+        `tracking.recycle_map_slots` does on the host, so that its world
+        pose stays where it was. (The reference package's device recycle
+        remaps `traj.ref` alone and leaves such an entry's relative pose
+        as it was, which moves the frame by the offset between the two
+        keyframes.)"""
+        K = self.Kmax
+        self.events += ("recycle",)
+        if int(torch.sum(m.kf_valid)) >= K:
+            m, _ = ms.decimate_keyframes(m, int(m.n_kf) - 1)
+            self.events += ("decimate",)
+        old = m
+        m, _, new_of_old = ms.compact_keyframes(m)
+        chain2, cvalid2 = self.weld_chain(c.chain, c.chain_valid,
+                                          old.kf_valid, new_of_old)
+        m, _ = ms.compact_landmarks(m)
+
+        tr = c.traj
+        ref = torch.clamp(tr.ref, 0, K - 1).to(torch.int64)
+        # nearest preceding surviving slot (slot 0 when there is none)
+        idx = torch.arange(K, device=ref.device)
+        prev = torch.cummax(torch.where(old.kf_valid, idx, 0), 0).values[ref]
+        gone = ~old.kf_valid[ref]
+        R_w = old.kf_R[ref] @ tr.R_rel
+        t_w = old.kf_t[ref] + lie._mv(old.kf_R[ref], tr.t_rel)
+        R_p = old.kf_R[prev].transpose(-1, -2)
+        tr = tr._replace(
+            ref=new_of_old[ref],
+            R_rel=torch.where(gone[:, None, None], R_p @ R_w, tr.R_rel),
+            t_rel=torch.where(gone[:, None],
+                              lie._mv(R_p, t_w - old.kf_t[prev]), tr.t_rel))
+        last = torch.clamp(c.last_kf_slot, 0, K - 1).to(torch.int64)
+        return m, c._replace(chain=chain2, chain_valid=cvalid2, traj=tr,
+                             last_kf_slot=new_of_old[last])
 
     # ------------------ staged IMU initialization ------------------
     def imu_init_maybe(self, m, c, time):
@@ -297,11 +390,9 @@ class VIStep:
     # ------------------ keyframe pipeline ------------------
     def kf_insert(self, m, c, bank, time, feat_mp, n_in):
         cfg, rig, K = self.cfg, self.rig, self.Kmax
+        if int(m.n_kf) >= K:
+            m, c = self.recycle(m, c)
         slot = int(m.n_kf)
-        if slot >= K:
-            raise NotImplementedError(_LATER.format(
-                "slab recycling: compact_keyframes / compact_landmarks / "
-                "decimate_keyframes / weld_chain"))
         m = ms.insert_keyframe(
             m, slot, c.R, c.p, c.v, c.bg, c.ba, time,
             bank["xy"], bank["desc"], bank["level"], bank["sigma2"],
@@ -399,10 +490,10 @@ class VIStep:
     # ------------------ tracking branch ------------------
     def branch_track(self, m, c, bank, time, pre_f, has_pre: bool):
         cfg, rig = self.cfg, self.rig
-        if int(c.mode) == LOST:
-            raise NotImplementedError(_LATER.format(
-                "LOST-mode relocalization, tracking.relocalize_step / "
-                "solvers/pnp.py"))
+        lost = int(c.mode) == LOST
+        # prediction: IMU when initialized, else constant velocity; when
+        # LOST, the relocalization's pose if it finds one (reference:
+        # Tracking.cc:1723, 3543)
         use_vi = bool(c.imu_ok) and has_pre and cfg.use_imu
         if use_vi:
             R_pred, t_pred, v_pred = pre_mod.predict_state(
@@ -410,10 +501,19 @@ class VIStep:
         else:
             R_pred, t_pred, v_pred = (c.R @ c.vel_R, c.p + c.R @ c.vel_t,
                                       c.v)
+        if lost:
+            okr, R_r, t_r, _ = trk.relocalize_step(
+                m, self.band0_feats(bank), c.gen, rig.kind, rig)
+            R_pred = torch.where(okr, R_r, R_pred)
+            t_pred = torch.where(okr, t_r, t_pred)
         min_last = self.min_last_of(c)
+        # widened search for a few frames after a LOST episode
+        # (reference: doubled th when recently relocalized,
+        # src/Tracking.cc:2020-2060)
         radius = torch.where(c.boost > 0, cfg.relost_radius,
                              cfg.match_radius).to(torch.float32)
-        common = dict(po_rounds=cfg.po_rounds, po_iters=cfg.po_iters)
+        common = dict(map_cap=cfg.track_map_cap, po_rounds=cfg.po_rounds,
+                      po_iters=cfg.po_iters)
         if use_vi:
             anchor = pose_opt.InertialState(R=c.R, p=c.p, v=c.v, bg=c.bg,
                                             ba=c.ba)
@@ -446,7 +546,7 @@ class VIStep:
         t_new = torch.where(ok, t2, torch.where(coast, t_pred, c.p))
         v_new = torch.where(ok, v2 if vi_upd else v_fd,
                             torch.where(coast, v_pred, c.v))
-        recovered = ok & retry
+        recovered = ok & (lost or retry)
         upd = ok & vi_upd
         c = c._replace(
             R=R_new, p=t_new, v=v_new,
@@ -462,12 +562,19 @@ class VIStep:
             mp_visible=m.mp_visible + (vis & ok).to(torch.int32),
             mp_found=m.mp_found + (keep & ok).to(torch.int32))
 
-        need_kf = bool(ok & (
-            (n_in < cfg.kf_min_inlier_frac
-             * torch.clamp(c.ref_kf_inliers, min=1))
-            | (n_in < cfg.kf_min_inliers_abs)
-            | (cfg.use_imu & (time - c.last_kf_time
-                              > cfg.kf_max_interval_s))))
+        kf_cond = ((n_in < cfg.kf_min_inlier_frac
+                    * torch.clamp(c.ref_kf_inliers, min=1))
+                   | (n_in < cfg.kf_min_inliers_abs)
+                   | (cfg.use_imu & (time - c.last_kf_time
+                                     > cfg.kf_max_interval_s)))
+        # one read decides the keyframe and names the frame's events
+        ok_h, kf_h, *reloc_h = torch.stack(
+            [ok, kf_cond] + ([okr] if lost else [])).tolist()
+        if lost:
+            self.events += ("reloc", "reloc_ok") if reloc_h[0] else ("reloc",)
+        if not ok_h:
+            self.events += ("lost",)
+        need_kf = ok_h and kf_h
         if need_kf:
             return self.kf_insert(m, c, bank, time, feat_mp, n_in)
         return m, c
@@ -475,6 +582,7 @@ class VIStep:
     # ------------------ the step ------------------
     def step(self, m: ms.MapState, c: VIStreamCarry, images, time,
              imu_w, imu_a, imu_dt):
+        self.events = ()
         images = images.to(torch.float32)
         bank = self.extract_bank(images)
         has_pre = False
@@ -539,6 +647,9 @@ class StreamingVITracker:
         # what the loop closer ran on the last push, from "gba_step",
         # "attempt" and "correction" (empty without loop closing)
         self.lc_events: tuple = ()
+        # what the tracking step ran on the last push beside plain
+        # tracking (`VIStep.events`)
+        self.step_events: tuple = ()
         if device_lc:
             lc_kw = device_lc if isinstance(device_lc, dict) else {}
             self._lc_step = streaming_lc.make_lc_step(
@@ -584,6 +695,7 @@ class StreamingVITracker:
         self.map, self.carry = self._step.step(
             self.map, self.carry, imgs, t, torch.as_tensor(w).to(dev),
             torch.as_tensor(a).to(dev), torch.as_tensor(dt).to(dev))
+        self.step_events = self._step.events
         if self._lc_step is not None:
             self.map, self.carry, self.lc_carry = self._lc_step(
                 self.map, self.carry, self.lc_carry, self.rig)
@@ -608,11 +720,17 @@ class StreamingVITracker:
         if self._snap is not None:
             return self._snap
         tr, m, c = self.carry.traj, self.map, self.carry
-        n_obs = torch.sum(((m.kf_obs >= 0) & m.kf_feat_valid
-                           & m.kf_valid[:, None]).to(torch.int32))
+        bound = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+        n_obs = torch.sum(bound.to(torch.int32))
+        # bound observations of live landmarks beyond `obs_cap`: the rows
+        # that `full_map_observations` leaves out of a whole-map solve
+        n_ba = torch.sum(bound & m.mp_valid[
+            torch.clamp(m.kf_obs, min=0).to(torch.int64)], dtype=torch.int32)
+        obs_dropped = torch.clamp(n_ba - self.cfg.obs_cap, min=0)
         fields = dict(time=tr.time, ref=tr.ref, R_rel=tr.R_rel,
                       t_rel=tr.t_rel, ok=tr.ok, idx=tr.idx, kf_R=m.kf_R,
                       kf_t=m.kf_t, n_kf=m.n_kf, n_mp=m.n_mp, n_obs=n_obs,
+                      obs_dropped=obs_dropped,
                       imu_ok=c.imu_ok.to(torch.int32),
                       viba_stage=c.viba_stage)
         if self.lc_carry is not None:

@@ -1,8 +1,10 @@
 """Map-side steps shared by the trackers (port of `project_landmarks`,
-`cull_landmarks`, `fuse_new_landmarks`, `cull_keyframes`, `local_ba_step`,
-`full_map_observations`, `_writeback_gba`, `global_ba_step` and
-`global_inertial_ba_step` of `openmavis_tpu/pipeline/tracking.py`;
-reference: src/Tracking.cc, src/LocalMapping.cc, src/LoopClosing.cc:2351).
+`descriptor_place_scores`, `cull_landmarks`, `fuse_new_landmarks`,
+`cull_keyframes`, `relocalize_step`, `local_ba_step`,
+`full_map_observations`, `_writeback_gba`, `global_ba_step`,
+`global_inertial_ba_step` and `recycle_map_slots` of
+`openmavis_tpu/pipeline/tracking.py`; reference: src/Tracking.cc,
+src/LocalMapping.cc, src/LoopClosing.cc:2351).
 
 Keyframe slots are Python ints here; the reference package keeps them as
 traced scalars.
@@ -10,15 +12,17 @@ traced scalars.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..frontend import matcher
+from ..frontend import extractor, matcher
 from ..geometry import cameras
 from ..imu import preintegration as pre_mod
 from ..optim import ba, global_ba
 from ..optim.reprojection import RigParams
 from ..ops import compact_indices, last_occurrence, scatter_max, set_rows
 from ..slam_map import map_state as ms
+from ..solvers import pnp as pnp_mod
 
 
 def project_landmarks(m: ms.MapState, R, t, rig_kind: int, rig_params,
@@ -42,6 +46,28 @@ def project_landmarks(m: ms.MapState, R, t, rig_kind: int, rig_params,
     vis = m.mp_valid & depth_ok & in_img & dist_ok & angle_ok
     lvl = ms.predict_scale_level(dist, m.mp_dmax)
     return uv, lvl, vis, dist
+
+
+def _best_per_keyframe(m: ms.MapState, desc, t_valid):
+    """[N, K] int32: each query descriptor's smallest Hamming distance
+    among the features of every keyframe that `t_valid` [K, F] admits
+    (1 << 20 where none). One dense product against all K*F keyframe
+    features."""
+    K, F = m.kf_obs.shape
+    dist = matcher.hamming_matrix(
+        desc, m.kf_desc.reshape(K * F, 256)).reshape(-1, K, F)
+    dist = torch.where(t_valid[None], dist, 1 << 20)
+    return dist.min(dim=2).values
+
+
+def descriptor_place_scores(m: ms.MapState, slot: int):
+    """Direct place-recognition scores: for each keyframe, the number of
+    features of keyframe `slot` whose best Hamming match in that keyframe
+    is < TH_LOW (the dense stand-in for the reference's BoW inverted file,
+    KeyFrameDatabase::DetectNBestCandidates). Returns scores [K] int32."""
+    best = _best_per_keyframe(m, m.kf_desc[slot], m.kf_feat_valid)
+    good = (best < matcher.TH_LOW) & m.kf_feat_valid[slot][:, None]
+    return torch.sum(good, dim=0, dtype=torch.int32)
 
 
 def cull_landmarks(m: ms.MapState, current_slot: int,
@@ -154,6 +180,67 @@ def cull_keyframes(m: ms.MapState, current_slot: int, keep_recent: int = 5,
         score = torch.where((idx - worst).abs() <= 1,
                             torch.full_like(score, -1.0), score)
     return m._replace(kf_valid=kf_valid, kf_obs=kf_obs), torch.stack(culled)
+
+
+N_RELOC_CAND = 3
+
+
+def relocalization_candidates(m: ms.MapState, feats: extractor.Features):
+    """Score every keyframe by how many of the frame's features find a
+    landmark-bound feature of it within TH_LOW, and take the best
+    `N_RELOC_CAND` (ties to the lower slot).
+    Returns (scores [K] int32, kf_cand [N_RELOC_CAND] int64)."""
+    t_valid = m.kf_feat_valid & (m.kf_obs >= 0) & m.kf_valid[:, None]
+    best = _best_per_keyframe(m, feats.desc, t_valid)
+    scores = torch.sum((best < matcher.TH_LOW) & feats.valid[:, None],
+                       dim=0, dtype=torch.int32)
+    order = torch.sort(scores, descending=True, stable=True).indices
+    return scores, order[:N_RELOC_CAND]
+
+
+def relocalization_matches(m: ms.MapState, feats: extractor.Features, kf):
+    """2D-3D matches of the frame's features to the landmarks keyframe
+    `kf` observes (mutual nearest neighbours under TH_LOW, ratio 0.85).
+    Returns (idx [F0] feature of `kf` or -1, mp [F0] landmark id, 0 where
+    unmatched, valid [F0])."""
+    obs = m.kf_obs[kf]
+    has_mp = (obs >= 0) & m.kf_feat_valid[kf]
+    idx, _ = matcher.match_nn(feats.desc, feats.valid, m.kf_desc[kf],
+                              has_mp, max_dist=matcher.TH_LOW, ratio=0.85,
+                              mutual=True)
+    matched = idx >= 0
+    safe = torch.where(matched, idx, 0).to(torch.int64)
+    mp = torch.where(matched, obs[safe], 0)
+    return idx, mp, matched & m.mp_valid[mp.to(torch.int64)]
+
+
+def relocalize_step(m: ms.MapState, feats: extractor.Features, gen,
+                    rig_kind: int, rig: RigParams, sample_idx=None):
+    """Relocalization: the best keyframes by dense descriptor scoring,
+    2D-3D matches to their landmarks, RANSAC PnP on bearings (reference:
+    Tracking::Relocalization, src/Tracking.cc:3543-3700 -- KFDB candidates
+    + MLPnPsolver RANSAC).
+
+    feats: the features of camera 0; gen: the generator the RANSAC samples
+    are drawn from unless `sample_idx` ([N_RELOC_CAND, n_hyp, 6]) is given.
+    Returns (success, R_wb, t_wb, n_inliers)."""
+    _, kf_cand = relocalization_candidates(m, feats)
+    bearing = cameras.unproject(rig_kind, rig.params[0], feats.xy)
+    # bearings in the body frame of camera 0
+    bearing_b = bearing @ rig.R_cb[0]
+    res = []
+    for j in range(N_RELOC_CAND):
+        _, mp, valid = relocalization_matches(m, feats, kf_cand[j])
+        # per-keypoint pyramid-level variance whitens the bearing
+        # constraints (the reference's MLPnPsolver covariance input)
+        res.append(pnp_mod.ransac_pnp(
+            gen, m.mp_pos[mp.to(torch.int64)], bearing_b, valid,
+            min_inliers=15, sigma2=feats.sigma2,
+            sample_idx=None if sample_idx is None else sample_idx[j]))
+    success, R_cw, t_cw, _, n_inliers = (torch.stack(x) for x in zip(*res))
+    b = torch.argmax(n_inliers)
+    # body(cam0 frame)-from-world -> world-from-body
+    return success[b], R_cw[b].T, -R_cw[b].T @ t_cw[b], n_inliers[b]
 
 
 def _local_landmarks(m: ms.MapState, mp_safe, valid, ML: int):
@@ -339,3 +426,42 @@ def global_inertial_ba_step(m: ms.MapState, pre_b, edge_valid,
     m = _writeback_gba(m, state, inlier, chi, observed, kf_local, feat,
                        obs.valid, with_imu=True)
     return m, chi
+
+
+def recycle_map_slots(m: ms.MapState, trajectory, map_id: int):
+    """Re-base trajectory entries off culled reference keyframes, then
+    compact the keyframe and landmark slabs so culled slots are reusable:
+    the slab's equivalent of the reference deleting keyframes
+    (LocalMapping::KeyFrameCulling, src/LocalMapping.cc:974).
+
+    trajectory: host list of (time, map_id, ref_slot, R_rel, t_rel) with
+    numpy poses relative to keyframe `ref_slot`.
+    Returns (m', trajectory', old_of_new, new_of_old, n_mp)."""
+    kf_valid = m.kf_valid.cpu().numpy()
+    kf_R = m.kf_R.cpu().numpy()
+    kf_t = m.kf_t.cpu().numpy()
+    # nearest preceding valid slot per slot
+    prev_valid = np.zeros(kf_valid.shape[0], np.int64)
+    last = 0
+    for k, v in enumerate(kf_valid):
+        if v:
+            last = k
+        prev_valid[k] = last
+
+    traj2 = []
+    for (tm, mid, ref, R_rel, t_rel) in trajectory:
+        if mid == map_id and not kf_valid[ref]:
+            ref2 = int(prev_valid[ref])
+            R_w = kf_R[ref] @ R_rel
+            t_w = kf_t[ref] + kf_R[ref] @ t_rel
+            R_rel = kf_R[ref2].T @ R_w
+            t_rel = kf_R[ref2].T @ (t_w - kf_t[ref2])
+            ref = ref2
+        traj2.append((tm, mid, ref, R_rel, t_rel))
+
+    m, old_of_new, new_of_old = ms.compact_keyframes(m)
+    new_of_old = new_of_old.cpu().numpy()
+    traj3 = [(tm, mid, int(new_of_old[ref]) if mid == map_id else ref,
+              R_rel, t_rel) for (tm, mid, ref, R_rel, t_rel) in traj2]
+    m, n_mp = ms.compact_landmarks(m)
+    return m, traj3, old_of_new.cpu().numpy(), new_of_old, int(n_mp)

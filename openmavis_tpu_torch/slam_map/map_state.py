@@ -1,6 +1,7 @@
 """Device-resident SLAM map: fixed-capacity structure-of-arrays slabs
 (port of `MapState`, `allocate`, `add_loop_edge`, `covisibility_matrix`,
-`insert_keyframe`, `update_mp_geometry` and `predict_scale_level` of
+`insert_keyframe`, `update_mp_geometry`, `compact_keyframes`,
+`compact_landmarks`, `decimate_keyframes` and `predict_scale_level` of
 `openmavis_tpu/slam_map/map_state.py`;
 reference: the KF/MP pointer graph of src/Map.cc, src/KeyFrame.cc,
 src/MapPoint.cc).
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import set_rows
+from ..ops import scatter_max, set_rows
 from . import bow
 
 
@@ -210,6 +211,114 @@ def update_mp_geometry(m: MapState, scale: float = 1.2,
                             m.mp_dmax),
         mp_dmin=torch.where(has_obs, torch.clamp(dmin, min=1e-4),
                             m.mp_dmin))
+
+
+def _pack_order(valid: torch.Tensor):
+    """For a validity mask [n]: (order [n] int32 packed position of each
+    entry, n_valid [] int32, old_of_new [n] int64 entry at each packed
+    position, 0 beyond n_valid, used [n] bool)."""
+    n = valid.shape[0]
+    dev = valid.device
+    order = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_valid = torch.sum(valid, dtype=torch.int32)
+    # invalid entries write to the dump row n
+    old_of_new = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    old_of_new[torch.where(valid, order, n).to(torch.int64)] = \
+        torch.arange(n, device=dev)
+    used = torch.arange(n, device=dev) < n_valid
+    return order, n_valid, old_of_new[:n], used
+
+
+def compact_keyframes(m: MapState):
+    """Pack valid keyframes to the front of the slab, preserving temporal
+    order, so culled slots become reusable (the slab's stand-in for
+    KeyFrame::SetBadFlag + erase, src/LocalMapping.cc:974).
+
+    Returns (m', old_of_new [K] int32, new_of_old [K] int32):
+    `new_of_old[k]` is the new slot of old keyframe k, or of the nearest
+    preceding valid keyframe if k was culled (so relative-pose trajectory
+    references stay meaningful), clamped to 0."""
+    K = m.kf_obs.shape[0]
+    valid = m.kf_valid
+    order, n_valid, old_of_new, used = _pack_order(valid)
+    new_of_old = torch.clamp(order, min=0)
+
+    def gather(x):
+        return x[old_of_new]
+
+    def remap(slots):
+        return new_of_old[torch.clamp(slots, 0, K - 1).to(torch.int64)]
+
+    # loop edges follow their endpoints; an edge dies with either endpoint
+    li = torch.clamp(m.loop_i, 0, K - 1).to(torch.int64)
+    lj = torch.clamp(m.loop_j, 0, K - 1).to(torch.int64)
+    le_ok = (m.loop_valid & (m.loop_i >= 0) & (m.loop_j >= 0)
+             & valid[li] & valid[lj])
+    gone = torch.full_like(m.loop_i, -1)
+    m2 = m._replace(
+        kf_R=gather(m.kf_R), kf_t=gather(m.kf_t), kf_v=gather(m.kf_v),
+        kf_bg=gather(m.kf_bg), kf_ba=gather(m.kf_ba),
+        kf_time=gather(m.kf_time), kf_valid=used,
+        kf_xy=gather(m.kf_xy), kf_desc=gather(m.kf_desc),
+        kf_level=gather(m.kf_level), kf_sigma2=gather(m.kf_sigma2),
+        kf_cam=gather(m.kf_cam),
+        kf_feat_valid=gather(m.kf_feat_valid) & used[:, None],
+        kf_obs=torch.where(used[:, None], gather(m.kf_obs), -1),
+        kf_bow=torch.where(used[:, None], gather(m.kf_bow), 0),
+        mp_first_kf=remap(m.mp_first_kf), mp_last_kf=remap(m.mp_last_kf),
+        loop_i=torch.where(le_ok, new_of_old[li], gone),
+        loop_j=torch.where(le_ok, new_of_old[lj], gone),
+        loop_valid=le_ok, n_kf=n_valid)
+    return m2, old_of_new.to(torch.int32), new_of_old
+
+
+def compact_landmarks(m: MapState):
+    """Pack valid landmarks to the front and remap the observation table.
+    Returns (m', n_valid [] int32)."""
+    valid = m.mp_valid
+    order, n_valid, old_of_new, used = _pack_order(valid)
+    new_of_old = torch.where(valid, order, -1)       # -1 for culled
+
+    def gather(x):
+        return x[old_of_new]
+
+    def gather_used(x):
+        return torch.where(used, gather(x), 0)
+
+    obs = m.kf_obs
+    obs = torch.where(obs >= 0,
+                      new_of_old[torch.clamp(obs, min=0).to(torch.int64)],
+                      -1)
+    return m._replace(
+        mp_pos=gather(m.mp_pos), mp_desc=gather(m.mp_desc),
+        mp_normal=gather(m.mp_normal), mp_dmin=gather(m.mp_dmin),
+        mp_dmax=gather(m.mp_dmax), mp_valid=used,
+        mp_visible=gather_used(m.mp_visible),
+        mp_found=gather_used(m.mp_found),
+        mp_first_kf=gather_used(m.mp_first_kf),
+        mp_last_kf=gather_used(m.mp_last_kf),
+        kf_obs=obs, n_mp=n_valid), n_valid
+
+
+def decimate_keyframes(m: MapState, current_slot: int, keep_recent: int = 8,
+                       keep_first: int = 2):
+    """Emergency slot reclamation when the slab is full and redundancy
+    culling freed nothing: invalidate every second keyframe in the old
+    half of the history, except the endpoints of loop edges (they hold
+    the closed-loop topology). Returns (m', drop [K] bool)."""
+    K = m.kf_obs.shape[0]
+    dev = m.kf_valid.device
+    idx = torch.arange(K, device=dev)
+    protected = ((idx < keep_first) | (idx > current_slot - keep_recent)
+                 | ~m.kf_valid)
+    drop = ~protected & (idx < current_slot // 2) & (idx % 2 == 1)
+    anchor = torch.zeros(K, dtype=torch.bool, device=dev)
+    for ends in (m.loop_i, m.loop_j):
+        anchor = scatter_max(anchor, torch.clamp(ends, 0, K - 1),
+                             m.loop_valid & (ends >= 0))
+    drop = drop & ~anchor
+    return m._replace(kf_valid=m.kf_valid & ~drop,
+                      kf_obs=torch.where(drop[:, None], -1, m.kf_obs)), drop
 
 
 def predict_scale_level(dist, dmax, scale: float = 1.2,
