@@ -20,7 +20,12 @@ Phases (any failure raises; the exit code is then nonzero):
      one frame's 512 features against a whole keyframe's 2,048, direct
      (512 x 2,048) and through `mask.T` (2,048 x 512); the capped local
      map's and the long slab's projection searches (8,192 x 512 and
-     32,768 x 512). Then time, at the main-path shapes, each wrapper
+     32,768 x 512); the single-camera paths' shapes: two frames of 1,000
+     features (1,000 x 1,000, direct and through `mask.T`: the mono init,
+     temporal spawn, the loop closer's keyframe pair and relocalization
+     all match one camera's 1,000 features against 1,000) and the map ->
+     frame search at 16,384 x 1,000. Then time, at the main-path shapes,
+     each wrapper
      (CUDA events), each kernel alone (a CUDA graph of 20 calls, and one
      call on a cold L2), each plain version, and
      `matcher.match_projection` by the mask route against the factor
@@ -47,7 +52,24 @@ Phases (any failure raises; the exit code is then nonzero):
      2,048 x 512 launches of `hamming_best2` per LOST frame; and a kidnap
      check: `relocalize_step` on the final map from the last frame's
      features alone, and one tracking step from the pose it proposes, land
-     within 0.10 m and 2 degrees of the tracker's pose.
+     within 0.10 m and 2 degrees of the tracker's pose;
+  5. drive path 3, "mono_inertial_euroc" (IMU_MONOCULAR): ORB-SLAM3's
+     Monocular-Inertial/EuRoC.yaml camera (752 x 480 pinhole with radtan
+     distortion, the images rendered distorted and the tracker given
+     `dist`), 1,000 ORB features x 8 levels, 200 Hz IMU with the yaml's
+     noise, body = camera, the 64-keyframe / 16,384-landmark slab, device
+     loop closing on, 200 frames of the flagship's orbit continued. Gates
+     (the reference package's own test bands): two-view init by frame 20,
+     and on the estimate made by frame 49 all but 4 frames tracked, the
+     IMU initialized, |horn_scale - 1| <= 0.2 and ATE (Horn scale)
+     <= 0.5 m (the whole run's are printed beside: over 200 frames the
+     reference's own mono-inertial tracker misses all three);
+  6. drive path 4, "rgbd_inertial" (IMU_RGBD): a 640 x 480 pinhole
+     (fx = fy = 382.6) with rendered depth maps, `use_depth` (256 depth
+     landmarks a keyframe at most, up to 25 m), the same ORB and IMU,
+     loop closing off, 120 frames. Gates: rig init from depth on frame 0,
+     >= 112 frames tracked, |horn_scale - 1| <= 0.06, ATE without scale
+     <= 0.35 m.
 
 Prints each path's result as one JSON line, the kernel table as one JSON
 line (one record per kernel, shape and mask layout, each with its own
@@ -74,6 +96,11 @@ Run: python3 chip_smoke.py   (from the repository root, one GPU)
      python3 chip_smoke.py --variants DIR   instead of the phases: builds
      each DIR/*.cu in place of the kernel source, checks it and times it
      beside the package's own source
+     python3 chip_smoke.py --paths LIST   drives only the named paths
+     (comma-separated: flagship, recycle_blackout, mono_inertial_euroc,
+     rgbd_inertial); it prints no {"ok": ...} line
+     python3 chip_smoke.py --out DIR   also writes each path's result
+     line into DIR/<path>.json
 """
 
 import json
@@ -95,6 +122,18 @@ BLACKOUT = range(200, 206)
 # the reference package's long-run configuration (BENCH_LONG_r05.json)
 LONG = dict(n_frames=800, orbit_frac=2.2, max_kf=256, max_mp=32768,
             track_map_cap=8192)
+# the single-camera paths: features per frame and frames
+SINGLE_FEATURES = 1000
+N_FRAMES_MONO = 200
+N_FRAMES_RGBD = 120
+# path 3 holds the bands of the reference's own mono test (tracking all
+# but 4 frames, the scale within 0.2, ATE 0.5 m) on the estimate made by
+# frame 49 (2.5 s: the first IMU init and 35 frames after). Over 200
+# frames the reference's mono-inertial tracker itself misses all three
+# (PERF.md); the whole run's numbers are printed beside
+MONO_BAND_FRAME = 49
+PATHS = ("flagship", "recycle_blackout", "mono_inertial_euroc",
+         "rgbd_inertial")
 
 
 def gpu_line() -> str:
@@ -222,17 +261,18 @@ def kernel_cases(torch, dev):
 
 def main_path_factors(torch, dev, n: int = 16384, m: int = 512,
                       radius: float = 15.0, p_valid: float = 0.25,
-                      seed: int = 7):
+                      seed: int = 7, size=(640.0, 480.0)):
     """The operands of one map->frame `match_projection` call as
     `_match_bank` makes it: a quarter of the landmark slab valid, 95% of
     the features valid, 15 px window, predicted level +-1, and planted
     near-copies so that the best matches are realistic (< TH_HIGH). The
     loop closer's searches are the same call with another window and
     fewer live rows (`radius`, `p_valid`).
+    `size`: the image (the single-camera EuRoC path's is 752 x 480).
     Returns the nine arguments of `projection_best2` in order."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    size = torch.tensor([640.0, 480.0], device=dev)
+    size = torch.tensor(size, device=dev)
     proj = torch.rand((n, 2), generator=g, device=dev) * size
     feat = torch.rand((m, 2), generator=g, device=dev) * size
     lq = torch.randint(0, 8, (n,), generator=g, device=dev,
@@ -287,6 +327,26 @@ def relocalization_case(torch, dev, f: int = 512, cf: int = 2048):
     valid = torch.as_tensor(rng.rand(f) < 0.95, device=dev)
     has_mp = torch.as_tensor(rng.rand(cf) < 0.45, device=dev)
     return d1, d2, valid[:, None] & has_mp[None, :]
+
+
+def single_camera_pair_case(torch, dev, f: int = SINGLE_FEATURES):
+    """One camera's features against another frame's as the mono init's
+    `match_nn` (and temporal spawn, the loop closer's keyframe pair and
+    relocalization on a one-camera rig) hands them over: 1,000 a side,
+    95% valid, the mask their outer product, two thirds of the second
+    frame's descriptors near-copies of the first's in another order.
+    Returns (d1, d2, mask)."""
+    rng = np.random.RandomState(23)
+    d1 = _desc(torch, dev, rng, f)
+    d2 = _desc(torch, dev, rng, f)
+    src = torch.as_tensor(rng.permutation(f), device=dev)
+    flip = torch.as_tensor(rng.rand(f, 256) < 0.1, device=dev)
+    seen = torch.as_tensor(rng.rand(f) < 0.67, device=dev)
+    d2 = torch.where(seen[:, None], torch.where(flip, 1 - d1[src], d1[src]),
+                     d2)
+    v1 = torch.as_tensor(rng.rand(f) < 0.95, device=dev)
+    v2 = torch.as_tensor(rng.rand(f) < 0.95, device=dev)
+    return d1, d2, v1[:, None] & v2[None, :]
 
 
 def factors_mask(mc, args):
@@ -396,6 +456,9 @@ def phase_kernel(torch, dev, mc):
     r1, r2, rmask = relocalization_case(torch, dev)
     cases.append(("reloc512x2048", r1, r2, rmask))
     cases.append(("reloc2048x512_T", r2, r1, rmask.T))
+    o1, o2, omask = single_camera_pair_case(torch, dev)
+    cases.append(("mono1000x1000", o1, o2, omask))
+    cases.append(("mono1000x1000_T", o2, o1, omask.T))
     for name, a, b, mk in cases:
         ref = mc.masked_best2_plain(a, b, mk)
         _exact(torch, f"hamming_best2 {name}",
@@ -411,9 +474,13 @@ def phase_kernel(torch, dev, mc):
     # landmarks) and the long slab (a quarter live, as at 16,384)
     args_cap = main_path_factors(torch, dev, n=8192, p_valid=0.9, seed=21)
     args_long = main_path_factors(torch, dev, n=32768, seed=22)
+    # the single-camera paths: 1,000 features of a 752 x 480 image
+    args_mono = main_path_factors(torch, dev, m=SINGLE_FEATURES, seed=24,
+                                  size=(752.0, 480.0))
     pcases = [("map16384x512", list(args)),
               ("cap8192x512", list(args_cap)),
               ("long32768x512", list(args_long)),
+              ("mono16384x1000", list(args_mono)),
               ("lc_pairs_by_projection_r40", list(main_path_factors(
                   torch, dev, radius=40.0, p_valid=0.03, seed=8))),
               ("lc_group_projection_r8", list(main_path_factors(
@@ -477,6 +544,7 @@ def phase_kernel(torch, dev, mc):
     sq, sw = orb.pack_bits(s2), orb.pack_bits(s1)
     kq, kw = orb.pack_bits(k1), orb.pack_bits(k2)
     rq, rw = orb.pack_bits(r1), orb.pack_bits(r2)
+    oq, ow = orb.pack_bits(o1), orb.pack_bits(o2)
     t = {"live_rows": live, "live_row_share": live / n,
          "rows_with_a_candidate": rows_hit, "admissible_pairs": pairs}
     # in turns: plain, wrapper, device-only, wrapper, plain
@@ -502,12 +570,20 @@ def phase_kernel(torch, dev, mc):
             ("mask_reloc_T", lambda: mc.masked_best2_fused(r2, r1, rmask.T),
              lambda: mc.masked_best2_plain(r2, r1, rmask.T),
              lambda: mc.launch_packed(rw, rq, rmask.T)),
+            ("mask_mono", lambda: mc.masked_best2_fused(o1, o2, omask),
+             lambda: mc.masked_best2_plain(o1, o2, omask),
+             lambda: mc.launch_packed(oq, ow, omask)),
+            ("mask_mono_T", lambda: mc.masked_best2_fused(o2, o1, omask.T),
+             lambda: mc.masked_best2_plain(o2, o1, omask.T),
+             lambda: mc.launch_packed(ow, oq, omask.T)),
             ("proj_map", lambda: mc.projection_best2(*args),
              lambda: mc.projection_best2_plain(*args), None),
             ("proj_cap", lambda: mc.projection_best2(*args_cap),
              lambda: mc.projection_best2_plain(*args_cap), None),
             ("proj_long", lambda: mc.projection_best2(*args_long),
-             lambda: mc.projection_best2_plain(*args_long), None)):
+             lambda: mc.projection_best2_plain(*args_long), None),
+            ("proj_mono", lambda: mc.projection_best2(*args_mono),
+             lambda: mc.projection_best2_plain(*args_mono), None)):
         runs = [cuda_time_ms(plain), cuda_time_ms(fused),
                 graph_time_ms(fused), cuda_time_ms(fused),
                 cuda_time_ms(plain)]
@@ -550,12 +626,13 @@ def phase_kernel(torch, dev, mc):
                 int(mk.any(0).sum()) * 256,
                 "outputs": rows * 12}, int(mk.sum())
 
-    bytes_mask, bytes_mut, bytes_kf, bytes_rel = (
+    bytes_mask, bytes_mut, bytes_kf, bytes_rel, bytes_mono = (
         mask_bytes(mask), mask_bytes(smask), mask_bytes(kmask),
-        mask_bytes(rmask))
+        mask_bytes(rmask), mask_bytes(omask))
     bytes_proj, _ = proj_bytes(args)
     bytes_cap, pairs_cap = proj_bytes(args_cap)
     bytes_long, pairs_long = proj_bytes(args_long)
+    bytes_pmono, pairs_pmono = proj_bytes(args_mono)
     b_mask, by_mask = _bound_ms(sum(bytes_mask.values()), pairs * 512)
     b_proj, by_proj = _bound_ms(sum(bytes_proj.values()), pairs * 512)
     b_cap, by_cap = _bound_ms(sum(bytes_cap.values()), pairs_cap * 512)
@@ -565,6 +642,15 @@ def phase_kernel(torch, dev, mc):
     b_kf, by_kf = _bound_ms(sum(bytes_kf.values()), int(kmask.sum()) * 512)
     b_rel, by_rel = _bound_ms(sum(bytes_rel.values()),
                               int(rmask.sum()) * 512)
+    b_mono, by_mono = _bound_ms(sum(bytes_mono.values()),
+                                int(omask.sum()) * 512)
+    b_pmono, by_pmono = _bound_ms(sum(bytes_pmono.values()),
+                                  pairs_pmono * 512)
+    t.update(mask_mono_bound_ms=b_mono, proj_mono_bound_ms=b_pmono,
+             mask_mono_bytes=bytes_mono, proj_mono_bytes=bytes_pmono,
+             mask_mono_admissible_pairs=int(omask.sum()),
+             proj_mono_admissible_pairs=pairs_pmono,
+             proj_mono_live_rows=int(args_mono[4].sum()))
     t.update(mask_map_bound_ms=b_mask, proj_map_bound_ms=b_proj,
              mask_mutual_bound_ms=b_mut, mask_kf_bound_ms=b_kf,
              mask_reloc_bound_ms=b_rel, proj_cap_bound_ms=b_cap,
@@ -582,7 +668,8 @@ def phase_kernel(torch, dev, mc):
              proj_long_admissible_pairs=pairs_long,
              proj_long_live_rows=int(args_long[4].sum()))
     print("kernel times at 16,384 x 512, 512 x 512, 2,048 x 2,048, "
-          "512 x 2,048, 8,192 x 512 and 32,768 x 512 (ms per call; "
+          "512 x 2,048, 8,192 x 512, 32,768 x 512, 1,000 x 1,000 and "
+          "16,384 x 1,000 (ms per call; "
           "wrapper = cuda events around 10 back-to-back calls, median of "
           "%d; kernel_only = 20 calls in one CUDA graph, median of %d "
           "replays; cold = one call after 256 MB were written): %s"
@@ -591,7 +678,9 @@ def phase_kernel(torch, dev, mc):
                        ("mask_mutual_T", b_mut), ("mask_kf", b_kf),
                        ("mask_kf_T", b_kf), ("mask_reloc", b_rel),
                        ("mask_reloc_T", b_rel), ("proj_map", b_proj),
-                       ("proj_cap", b_cap), ("proj_long", b_long)):
+                       ("proj_cap", b_cap), ("proj_long", b_long),
+                       ("mask_mono", b_mono), ("mask_mono_T", b_mono),
+                       ("proj_mono", b_pmono)):
         print("%-14s wrapper %8.2f us  kernel alone %7.2f us  cold %7.2f us"
               "  plain %8.2f us  bound %6.3f us"
               % (key, t[f"{key}_wrapper_ms"] * 1e3,
@@ -638,7 +727,16 @@ def phase_kernel(torch, dev, mc):
         record("projection_best2", "proj_cap", (args_cap[3].shape[0], m),
                "factors", b_cap, by_cap),
         record("projection_best2", "proj_long", (args_long[3].shape[0], m),
-               "factors", b_long, by_long)]
+               "factors", b_long, by_long),
+        # the single-camera paths: one camera's features against another
+        # frame's or keyframe's, and the map -> frame search
+        record("hamming_best2", "mask_mono", tuple(omask.shape), "rows",
+               b_mono, by_mono),
+        record("hamming_best2", "mask_mono_T", tuple(omask.T.shape), "T",
+               b_mono, by_mono),
+        record("projection_best2", "proj_mono",
+               (args_mono[3].shape[0], SINGLE_FEATURES), "factors", b_pmono,
+               by_pmono)]
 
 
 def mask_route_match_projection(proj_xy, pred_level, radius, d_query,
@@ -817,7 +915,8 @@ def wrap_stages(timer: StageTimer, tr) -> None:
     from openmavis_tpu_torch.pipeline import multi_tracking as mt
     from openmavis_tpu_torch.pipeline import tracking as trk
     for name in ("extract_bank", "branch_track", "kf_insert",
-                 "imu_init_maybe", "vi_window_ba", "recycle", "weld_chain"):
+                 "imu_init_maybe", "vi_window_ba", "recycle", "weld_chain",
+                 "mono_init", "mono_do_init", "depth_spawn"):
         timer.wrap(tr._step, name)
     timer.wrap(pre_mod, "integrate", "pre_mod.integrate")
     for name in ("pose_inertial_optimization", "pose_optimization"):
@@ -869,9 +968,10 @@ def make_tracker(torch, dev, n_frames: int, lc: bool, max_kf: int = 64,
 
 
 def drive(torch, mc, tr, frames, batches, stages: bool = False,
-          on_frame=None):
-    """Push every frame through the tracker with the launch counts set to
-    0 just before and read just after. Returns a dict: frame_ms, the
+          on_frame=None, depths=None):
+    """Push every frame (and its depth maps, for a `use_depth` tracker)
+    through the tracker with the launch counts set to 0 just before and
+    read just after. Returns a dict: frame_ms, the
     frames on which the loop closer or the step ran something beside plain
     tracking (`lc_frames`, `step_frames`), the launch counts by (kernel,
     N, M, layout), and the stage timer."""
@@ -885,7 +985,8 @@ def drive(torch, mc, tr, frames, batches, stages: bool = False,
         for i in range(len(frames)):
             t, b = batches[i]
             t1 = time.perf_counter()
-            tr.push(frames[i], t, b)
+            tr.push(frames[i], t, b,
+                    depth=None if depths is None else depths[i])
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t1) * 1e3)
             if tr.lc_events:
@@ -996,6 +1097,20 @@ def common_checks(out: dict, min_tracked: int) -> list:
     return checks
 
 
+OUT_DIR = None
+
+
+def emit(out: dict) -> None:
+    """Print a path's result line, and with `--out DIR` also write it to
+    DIR/<path>.json (the tool that runs the script may keep only the end
+    of its output)."""
+    print(json.dumps(out), flush=True)
+    if OUT_DIR is not None:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, out["path"] + ".json"), "w") as f:
+            json.dump(out, f)
+
+
 def gate(name: str, checks: list) -> None:
     failed = [what for good, what in checks if not good]
     if failed:
@@ -1023,7 +1138,7 @@ def phase_main_path(torch, dev, mc, card: str, lc: bool = True,
     out = content(torch, tr, run, N_FRAMES, t_wb, lc, stages, card)
     out["path"] = "flagship"
     out["match_bank"] = match_bank_times(torch, dev, tr, frames[-1])
-    print(json.dumps(out))
+    emit(out)
     if stages:
         print_stages(run, out, "flagship")
     checks = common_checks(out, 152)
@@ -1204,7 +1319,7 @@ def phase_recycle_blackout(torch, dev, mc, card: str, stages: bool = False):
         dict(frame=i, **kidnap_check(torch, dev, tr, frames[i], R_traj[i],
                                      p_traj[i], attempts=1))
         for i in (n - 35, n - 20, n - 10, n - 5)]
-    print(json.dumps(out))
+    emit(out)
     if stages:
         print_stages(run, out, "recycle_blackout")
     k = out["kidnap"]
@@ -1237,6 +1352,194 @@ def phase_recycle_blackout(torch, dev, mc, card: str, stages: bool = False):
          "and 2 deg"),
     ]
     gate("recycle + blackout path", checks)
+    return counts
+
+
+class CallProbe:
+    """Wraps `owner.attr` and records what `summary(result)` says of each
+    call, with the frame it came in (set by the caller as `frame`)."""
+
+    def __init__(self, owner, attr: str, summary):
+        self.owner, self.attr, self.summary = owner, attr, summary
+        self.fn, self.calls, self.frame = getattr(owner, attr), [], None
+        setattr(owner, attr, self)
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.append(dict(frame=self.frame, **self.summary(out)))
+        return out
+
+    def restore(self):
+        setattr(self.owner, self.attr, self.fn)
+
+
+def single_camera_setup(path: str):
+    """(image width, height, pinhole, radtan or None, depth maps?) of a
+    single-camera path: `scene`'s EuRoC camera with radtan for
+    `mono_inertial_euroc`, its RGB-D camera with depth maps for
+    `rgbd_inertial`."""
+    from openmavis_tpu_torch import scene
+    if path == "mono_inertial_euroc":
+        return (scene.EUROC_W, scene.EUROC_H, scene.EUROC_PINHOLE,
+                scene.EUROC_RADTAN, False)
+    return scene.RGBD_W, scene.RGBD_H, scene.RGBD_PINHOLE, None, True
+
+
+def make_single_tracker(torch, dev, path: str, n_frames: int, rig_np):
+    """The single-camera paths' tracker on the card: 1,000 features x 8
+    levels, 200 Hz IMU with the EuRoC yaml's noise, the 64-keyframe /
+    16,384-landmark slab and the rest of the bench configuration; radtan
+    `dist` and device loop closing for `mono_inertial_euroc`, depth priors
+    (256 a keyframe, up to 25 m) for `rgbd_inertial`.
+    Returns (tracker, cfg)."""
+    from openmavis_tpu_torch import convert, scene
+    from openmavis_tpu_torch.frontend import extractor
+    from openmavis_tpu_torch.imu import preintegration as pre_mod
+    from openmavis_tpu_torch.pipeline import streaming_vi
+
+    w, h, _, dist, depth = single_camera_setup(path)
+    kw = scene.single_camera_config_kwargs(n_frames, w, h)
+    if depth:
+        kw.update(use_depth=True, depth_cap=256, depth_max=25.0)
+    cfg = streaming_vi.VIStreamConfig(
+        orb=extractor.OrbConfig(n_features=SINGLE_FEATURES, n_levels=8), **kw)
+    noise = pre_mod.ImuNoise.from_sigmas(*scene.EUROC_NOISE_SIGMAS,
+                                         device=dev)
+    tr = streaming_vi.StreamingVITracker(
+        convert.rig_from_numpy(rig_np, device=dev), cfg, noise, seed=0,
+        device=dev,
+        dist=None if dist is None else np.asarray(dist, np.float32)[None],
+        device_lc=False if depth else dict(score_min=30, temporal=2))
+    return tr, cfg
+
+
+def phase_single_camera(torch, dev, mc, card: str, path: str,
+                        stages: bool = False):
+    """Path 3 (`mono_inertial_euroc`) or path 4 (`rgbd_inertial`): one
+    camera whose frame is the body's, on the flagship's orbit continued
+    at the same angular step. Gates from the reference package's own
+    tests (`test_mono_inertial_streaming`, `test_depth_prior_streaming`)."""
+    from openmavis_tpu_torch import scene
+    from openmavis_tpu_torch.io import evaluation
+    from openmavis_tpu_torch.solvers import two_view
+
+    mono = path == "mono_inertial_euroc"
+    n = N_FRAMES_MONO if mono else N_FRAMES_RGBD
+    w, h, pin, dist, depth = single_camera_setup(path)
+    t0 = time.perf_counter()
+    rig_np, frames, _, t_wb, batches, depths = \
+        scene.make_single_camera_sequence(
+            n, 1.25 * (n - 1) / (N_FRAMES - 1), w, h, pin, dist=dist,
+            depth=depth)
+    print("%s scene (%d frames, %d x %d%s) rendered in %.1f s"
+          % (path, n, w, h, ", depth maps" if depth else "",
+             time.perf_counter() - t0))
+    tr, cfg = make_single_tracker(torch, dev, path, n, rig_np)
+    probes = [CallProbe(two_view, "reconstruct", lambda r: dict(
+                  success=bool(r.success),
+                  model="H" if bool(r.homography) else "E",
+                  points=int(r.is_good.sum()))),
+              CallProbe(tr._step, "depth_spawn", lambda r: dict(
+                  spawned=int(r[1]), landmarks=int(r[0].n_mp)))]
+
+    progress = []
+
+    def on_frame(i, ms):
+        for p in probes:
+            p.frame = i + 1
+        if (i + 1) % 25 == 0:
+            snap = tr.snapshot()
+            t_est, _, p_est = tr.get_trajectory()
+            ok = snap["ok"][:len(t_est)]
+            ate = evaluation.ate_rmse(
+                t_est[ok], p_est[ok], np.arange(i + 1) / scene.FPS_IN,
+                t_wb[:i + 1], with_scale=True) if ok.sum() > 3 else {}
+            progress.append(dict(
+                frame=i, tracked=int(ok.sum()),
+                n_keyframes=int(snap["n_kf"]), n_landmarks=int(snap["n_mp"]),
+                n_obs=int(snap["n_obs"]), viba_stage=int(snap["viba_stage"]),
+                ate_rmse_m=float(ate.get("rmse", np.nan)),
+                horn_scale=float(ate.get("scale", np.nan))))
+
+    for p in probes:
+        p.frame = 0
+    try:
+        run = drive(torch, mc, tr, frames, batches, stages,
+                    on_frame=on_frame, depths=depths)
+    finally:
+        for p in probes:
+            p.restore()
+    counts = run["counts"]
+    out = content(torch, tr, run, n, t_wb, mono, stages, card)
+    out["path"] = path
+    tracked = tr.snapshot()["ok"][:n]
+    first_ok = int(np.argmax(tracked)) if tracked.any() else None
+    out.update(first_tracked_frame=first_ok,
+               first_tracked_frame_ms=(run["frame_ms"][first_ok]
+                                       if first_ok is not None else None),
+               first_frames_ms=run["frame_ms"][:10], progress=progress)
+    two_view_calls, depth_calls = probes[0].calls, probes[1].calls
+    if mono:
+        init = next((c for c in two_view_calls if c["success"]), None)
+        out.update(two_view_attempts=two_view_calls, init=init)
+    else:
+        out.update(depth_spawns=depth_calls)
+    emit(out)
+    if stages:
+        print_stages(run, out, path)
+    by_entry = out["matcher_cuda_launches_by_entry"]
+    checks = [
+        (by_entry["projection_best2"] >= out["frames_tracked"] - 1,
+         "projection_best2 launched on every tracked frame"),
+        (by_entry["hamming_best2"] >= 1, "hamming_best2 launched"),
+        (out["trajectory_finite"], "finite trajectory"),
+        (out["map_finite"], "finite map")]
+    if mono:
+        init = out["init"]
+        print("two-view init on frame %s (%s model, %s landmarks), that "
+              "frame %.1f ms; attempts %d"
+              % (init and init["frame"], init and init["model"],
+                 init and init["points"],
+                 out["first_tracked_frame_ms"] or float("nan"),
+                 len(two_view_calls)))
+        band = next(p for p in progress if p["frame"] == MONO_BAND_FRAME)
+        out["band_frame"] = band
+        print("by frame %d: %d tracked, |horn_scale - 1| = %.4f, ATE (Horn "
+              "scale) %.4f m; whole run: %d of %d tracked, horn_scale %.4f, "
+              "ATE %.4f m"
+              % (MONO_BAND_FRAME, band["tracked"],
+                 abs(band["horn_scale"] - 1.0), band["ate_rmse_m"],
+                 out["frames_tracked"], n, out["horn_scale"],
+                 out["ate_rmse_m"]))
+        checks += [
+            (init is not None and init["frame"] <= 20
+             and first_ok == init["frame"],
+             "two-view init succeeds by frame 20"),
+            (band["tracked"] >= MONO_BAND_FRAME + 1 - 4,
+             "all but 4 of frames 0-%d tracked" % MONO_BAND_FRAME),
+            (band["viba_stage"] >= 1,
+             "IMU initialized by frame %d" % MONO_BAND_FRAME),
+            (abs(band["horn_scale"] - 1.0) <= 0.2,
+             "|horn_scale - 1| <= 0.2 by frame %d" % MONO_BAND_FRAME),
+            (band["ate_rmse_m"] <= 0.5,
+             "ate_rmse_m (Horn scale) <= 0.5 by frame %d" % MONO_BAND_FRAME)]
+    else:
+        first = depth_calls[0] if depth_calls else None
+        print("rig init from depth on frame %s: %s landmarks; depth "
+              "landmarks per keyframe %s"
+              % (first and first["frame"], first and first["spawned"],
+                 [c["spawned"] for c in depth_calls]))
+        checks += [
+            (first is not None and first["frame"] == 0 and first_ok == 0
+             and first["spawned"] >= cfg.min_rig_landmarks,
+             "rig init from depth on frame 0 (>= %d landmarks)"
+             % cfg.min_rig_landmarks),
+            (out["frames_tracked"] >= 112, "frames_tracked >= 112"),
+            (abs(out["horn_scale"] - 1.0) <= 0.06,
+             "|horn_scale - 1| <= 0.06"),
+            (out["ate_rmse_noscale_m"] <= 0.35,
+             "ate_rmse_noscale_m <= 0.35")]
+    gate(path + " path", checks)
     return counts
 
 
@@ -1309,6 +1612,14 @@ def main() -> int:
                                           os.path.relpath(lib, REPO)))
 
     argv = sys.argv[1:]
+    global OUT_DIR
+    OUT_DIR = argv[argv.index("--out") + 1] if "--out" in argv else None
+    chosen = argv[argv.index("--paths") + 1].split(",") \
+        if "--paths" in argv else list(PATHS)
+    unknown = set(chosen) - set(PATHS)
+    if unknown:
+        raise ValueError("unknown paths %s; choose from %s"
+                         % (sorted(unknown), ", ".join(PATHS)))
     if "--variants" in argv:
         compare_variants(torch, dev, mc, argv[argv.index("--variants") + 1])
         return 0
@@ -1319,18 +1630,23 @@ def main() -> int:
     stages = "--stages" in argv
     paths = {}
     if "--long" in argv:
-        out_dir = argv[argv.index("--out") + 1] if "--out" in argv \
-            else os.path.join(REPO, "chip_smoke_out")
-        paths["long"] = phase_long(torch, dev, mc, card, out_dir)
+        paths["long"] = phase_long(torch, dev, mc, card, OUT_DIR or
+                                   os.path.join(REPO, "chip_smoke_out"))
     else:
         runs = int(argv[argv.index("--main-path-runs") + 1]) \
             if "--main-path-runs" in argv else 1
-        for _ in range(runs):
-            paths["flagship"] = phase_main_path(
-                torch, dev, mc, card, lc="--no-lc" not in argv,
-                stages=stages)
-        paths["recycle_blackout"] = phase_recycle_blackout(
-            torch, dev, mc, card, stages=stages)
+        if "flagship" in chosen:
+            for _ in range(runs):
+                paths["flagship"] = phase_main_path(
+                    torch, dev, mc, card, lc="--no-lc" not in argv,
+                    stages=stages)
+        if "recycle_blackout" in chosen:
+            paths["recycle_blackout"] = phase_recycle_blackout(
+                torch, dev, mc, card, stages=stages)
+        for path in PATHS[2:]:
+            if path in chosen:
+                paths[path] = phase_single_camera(torch, dev, mc, card, path,
+                                                  stages=stages)
     for k in kernels:
         n, m = map(int, k["shape"].split("x"))
         key = (k["name"], n, m, k["mask_layout"])
@@ -1344,6 +1660,8 @@ def main() -> int:
             % {p: sorted(c) for p, c in paths.items()})
 
     print(json.dumps({"kernels": kernels}))
+    if "--paths" in argv:
+        return 0
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

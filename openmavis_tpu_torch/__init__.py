@@ -9,14 +9,17 @@ the parity tests pass `device="cpu"`. It never imports jax or
 
 Subpackages
 -----------
-geometry   Lie groups (SO3/SE3), camera models, triangulation.
+geometry   Lie groups (SO3/SE3), camera models with radtan undistortion,
+           triangulation.
 imu        SE2(3) IMU pre-integration.
 frontend   Image pyramid, FAST + oriented-BRIEF extraction, Hamming matching
            (the hand-written CUDA best-2 kernel lives in
-           frontend/matcher_cuda.py, its source in csrc/).
+           frontend/matcher_cuda.py, its source in csrc/), depth priors.
+solvers    RANSAC two-view (E/H), PnP and Sim3 solvers.
 optim      Levenberg-Marquardt, Schur-complement BA, inertial factors.
 slam_map   Fixed-capacity map slabs, LSH bag-of-words signatures.
-pipeline   The streaming multi-camera VI tracker.
+pipeline   The streaming VI tracker (multi-camera, mono, RGB-D) and its
+           device loop closer.
 io         Synthetic scenes and trajectory evaluation (numpy).
 """
 

@@ -75,6 +75,11 @@ def rig_to_numpy(rig: RigParams) -> dict:
                 t_cb=_np(rig.t_cb))
 
 
+def dist_from_numpy(dist, device=None) -> torch.Tensor:
+    """Radtan coefficients [C, 4] (k1, k2, p1, p2) as float32."""
+    return _t(dist, torch.float32, resolve_device(device))
+
+
 def noise_from_numpy(d: dict, device=None) -> pre_mod.ImuNoise:
     device = resolve_device(device)
     return pre_mod.ImuNoise(_t(d["nga"], torch.float32, device),

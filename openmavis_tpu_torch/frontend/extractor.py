@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..geometry import cameras
 from . import fast, orb, pyramid
 
 
@@ -160,3 +161,25 @@ def extract(img: torch.Tensor, cfg: OrbConfig = OrbConfig()) -> Features:
     """[H, W] float32 image -> Features with capacity cfg.n_features."""
     f = extract_multicam(img[None], cfg)
     return Features(*(x[0] for x in f))
+
+
+def undistort_features(feats: Features, params: torch.Tensor,
+                       dist) -> Features:
+    """Replace keypoint pixels with ideal-pinhole pixels.
+
+    For distorted-pinhole rigs (e.g. raw EuRoC images, radtan k1 ~= -0.28)
+    the detector runs on the raw image and the keypoints are lifted to the
+    ideal pinhole model here, so all downstream projection and matching
+    use undistorted coordinates (reference: Frame::UndistortKeyPoints via
+    cv::undistortPoints, src/Frame.cc).
+
+    params/dist broadcast over feats.xy's batch dims: single-camera feats
+    [K, 2] take params [4+] / dist [4]; camera-batched feats [C, K, 2] take
+    params [C, 4+] / dist [C, 4]. `dist` None is a no-op."""
+    if dist is None:
+        return feats
+    p = torch.as_tensor(params, device=feats.xy.device)
+    d = torch.as_tensor(dist, dtype=torch.float32, device=feats.xy.device)
+    if feats.xy.ndim == 3:      # [C, K, 2]
+        p, d = p[:, None, :], d[:, None, :]
+    return feats._replace(xy=cameras.undistort_pixels(p, d, feats.xy))

@@ -60,6 +60,49 @@ def pinhole_project_jac(params: torch.Tensor, p: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# Radial-tangential distortion (keypoint undistortion as the reference's
+# Frame::UndistortKeyPoints via cv::undistortPoints)
+# ---------------------------------------------------------------------------
+
+def radtan_distort(dist: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Apply [k1, k2, p1, p2] distortion to normalized coords [..., 2]."""
+    k1, k2, p1, p2 = dist[..., 0], dist[..., 1], dist[..., 2], dist[..., 3]
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
+def radtan_undistort(dist: torch.Tensor, xy_d: torch.Tensor,
+                     iters: int = 8) -> torch.Tensor:
+    """Invert radtan by fixed-point iteration (a fixed trip count)."""
+    k1, k2, p1, p2 = dist[..., 0], dist[..., 1], dist[..., 2], dist[..., 3]
+    xd, yd = xy_d[..., 0], xy_d[..., 1]
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return torch.stack([x, y], dim=-1)
+
+
+def undistort_pixels(params: torch.Tensor, dist: torch.Tensor,
+                     uv: torch.Tensor) -> torch.Tensor:
+    """Distorted pixels -> ideal-pinhole pixels with the same K."""
+    fx, fy, cx, cy = (params[..., 0], params[..., 1], params[..., 2],
+                      params[..., 3])
+    xy_d = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy],
+                       dim=-1)
+    xy = radtan_undistort(dist, xy_d)
+    return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Kannala-Brandt 8 (equidistant fisheye)
 # ---------------------------------------------------------------------------
 

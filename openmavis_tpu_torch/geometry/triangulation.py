@@ -79,3 +79,8 @@ def triangulate_matches(kind: int, params1, params2, R12, t12, uv1, uv2,
              & (e1 < reproj_chi2 * s1v)
              & (e2 < reproj_chi2 * s2v))
     return p, s1, valid
+
+
+def stereo_depth_from_point(p_c1, baseline_dir=None):
+    """Depth along the optical axis of camera 1."""
+    return p_c1[..., 2]

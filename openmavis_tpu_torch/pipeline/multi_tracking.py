@@ -191,36 +191,6 @@ def _lap(cfg, cam: int):
     return tuple(cfg.lapping[cam])
 
 
-def _write_new_landmarks(m: ms.MapState, good, X_w, desc, slot_new: int,
-                         cap_new: int):
-    """Allocate up to `cap_new` landmark slots after n_mp for the `good`
-    rows, in row order (dump row M for the rest).
-    Returns (m', slot_mp [F], write [F], n_written)."""
-    M = m.mp_pos.shape[0]
-    order = torch.cumsum(good.to(torch.int32), 0) - 1
-    slot_mp = m.n_mp + order
-    write = good & (order < cap_new) & (slot_mp < M)
-    tgt = torch.where(write, slot_mp, M).to(torch.int64)
-    dev = good.device
-    mp_pos = torch.zeros((M + 1, 3), dtype=m.mp_pos.dtype, device=dev)
-    mp_pos[tgt] = X_w
-    mp_desc = torch.zeros((M + 1, 256), dtype=torch.int8, device=dev)
-    mp_desc[tgt] = desc
-    newly = torch.zeros(M + 1, dtype=torch.bool, device=dev)
-    newly[tgt] = write
-    newly = newly[:M]
-    n = torch.sum(write, dtype=torch.int32)
-    slot_t = torch.full_like(m.mp_first_kf, slot_new)
-    m = m._replace(
-        mp_pos=torch.where(newly[:, None], mp_pos[:M], m.mp_pos),
-        mp_desc=torch.where(newly[:, None], mp_desc[:M], m.mp_desc),
-        mp_valid=m.mp_valid | newly,
-        mp_first_kf=torch.where(newly, slot_t, m.mp_first_kf),
-        mp_last_kf=torch.where(newly, slot_t, m.mp_last_kf),
-        n_mp=m.n_mp + n)
-    return m, slot_mp.to(torch.int32), write, n
-
-
 def stereo_spawn(m: ms.MapState, slot: int, rig_kind: int, n_cams: int,
                  rig: RigParams, pair: tuple, cap_new: int = 512,
                  max_depth: float = 40.0, lap1=None, lap2=None):
@@ -267,7 +237,7 @@ def stereo_spawn(m: ms.MapState, slot: int, rig_kind: int, n_cams: int,
     t_wc1 = t_wb + R_wb @ (-R_c1b.T @ t_c1b)
     X_w = X_c1 @ R_wc1.T + t_wc1
 
-    m2, slot_mp, write, n = _write_new_landmarks(m, good, X_w, d1, slot,
+    m2, slot_mp, write, n = ms.write_new_landmarks(m, good, X_w, d1, slot,
                                                  cap_new)
     obs = m.kf_obs[slot].clone()
     obs[c1 * F:(c1 + 1) * F] = torch.where(write, slot_mp, obs[s1])
@@ -320,7 +290,7 @@ def _spawn_pair_band(m: ms.MapState, slot_new: int, slot_ref: int,
     good = matched & tri_ok & (depth > 0.05) & (depth < max_depth)
 
     X_w = X_c1 @ R1.T + t1
-    m2, slot_mp, write, n = _write_new_landmarks(m, good, X_w, d1,
+    m2, slot_mp, write, n = ms.write_new_landmarks(m, good, X_w, d1,
                                                  slot_new, cap_new)
     band = cam * F
     kf_obs = m.kf_obs.clone()

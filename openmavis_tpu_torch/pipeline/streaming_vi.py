@@ -16,14 +16,23 @@ and every LOST frame tries `tracking.relocalize_step` for a pose proposal.
 With `device_lc` the device loop closer (`streaming_lc.make_lc_step`) runs
 after every frame's step, with the amortized post-loop FullInertialBA.
 
+Three initializations: a rig with `stereo_pairs` starts metric on its
+first frame from the rig baseline; `use_depth` adds depth-prior landmarks
+there and at every keyframe (IMU_RGBD); a single camera without depth
+(IMU_MONOCULAR) takes a reference frame, matches later frames against it
+and initializes from a two-view reconstruction at arbitrary scale, which
+the `fix_scale=False` inertial init makes metric. `dist` (radtan) lifts
+the keypoints of distorted pinhole images to the ideal pinhole.
+
 The reference package runs the step as one jitted program under
 `lax.cond`/`lax.switch`; here each branch is a Python branch on a device
 scalar, which reads it back to the host (a sync per decision).
 
 Not ported yet, each raising NotImplementedError and queued in ROADMAP.md:
 the cross-map weld (`secondary_map`, `merge_kw`), host-policy loop closing
-(`loop_closer`, `maybe_close_loop`), `run_global_ba`, the mono two-view
-init, `use_depth`, `dist` and `frames_per_dispatch > 1`.
+(`loop_closer`, `maybe_close_loop`) and `run_global_ba`.
+`frames_per_dispatch > 1` (the reference's chunking of frames into one
+dispatch for its transport) is left out and raises too.
 
 Reference parity map: per-frame flow Tracking::GrabImageMulti
 src/Tracking.cc:1410; IMU preintegration :1625; prediction :1723; VI pose
@@ -31,7 +40,9 @@ optimization Optimizer::PoseInertialOptimizationLastFrame
 src/Optimizer.cc:5580; keyframe pipeline src/LocalMapping.cc:395-786;
 staged IMU init LocalMapping.cc:203-265, 1255; KF culling + chain merge
 LocalMapping.cc:974 + ImuTypes.cc:241-263; relocalization
-Tracking::Relocalization src/Tracking.cc:3543.
+Tracking::Relocalization src/Tracking.cc:3543; mono-inertial init
+Tracking::MonocularInitialization src/Tracking.cc:2411; depth priors
+src/Frame.cc:1659-1765, 1916-1922.
 """
 
 from __future__ import annotations
@@ -43,17 +54,19 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..frontend import extractor
-from ..geometry import lie
+from ..frontend import depth as depth_mod
+from ..frontend import extractor, matcher
+from ..geometry import cameras, lie
 from ..imu import preintegration as pre_mod
 from ..optim import pose_opt
 from ..optim.reprojection import RigParams
-from ..ops import set_rows
+from ..ops import scatter_max, set_rows
 from ..slam_map import map_state as ms
+from ..solvers import two_view
 from . import multi_tracking as mt
 from . import streaming_lc
 from . import tracking as trk
-from .streaming import LOST, NEED_REF, OK, TrajRing
+from .streaming import INIT, LOST, NEED_REF, OK, TrajRing, _masked_median
 
 __all__ = ["VIStreamConfig", "VIStreamCarry", "StreamingVITracker",
            "init_carry"]
@@ -81,9 +94,8 @@ class VIStreamCarry(NamedTuple):
     ref_kf_inliers: torch.Tensor
     lost_frames: torch.Tensor
     boost: torch.Tensor        # [] i32 frames of widened search post-LOST
-    gen: torch.Generator       # replaces the reference's PRNG key (RANSAC
-                               # and relocalization; the rig path draws
-                               # no random numbers)
+    gen: torch.Generator       # replaces the reference's PRNG key (the
+                               # two-view, PnP and Sim3 RANSAC draws)
     pre_acc: pre_mod.Preintegrated   # since last keyframe
     chain: pre_mod.Preintegrated     # [K] per-KF interval (k-1 -> k)
     chain_valid: torch.Tensor        # [K] bool
@@ -205,22 +217,25 @@ def _bias(c: VIStreamCarry) -> torch.Tensor:
 
 class VIStep:
     """The per-frame step for one configuration and rig:
-    `step(m, c, images, time, imu_w, imu_a, imu_dt) -> (m, c)`."""
+    `step(m, c, images, time, imu_w, imu_a, imu_dt, depth, sample_idx)
+    -> (m, c)`. `dist`: optional [C, 4] radtan coefficients on the rig's
+    device."""
 
     def __init__(self, cfg: VIStreamConfig, rig: RigParams,
-                 noise: pre_mod.ImuNoise):
-        if cfg.use_depth:
-            raise NotImplementedError(_LATER.format(
-                "depth priors, use_depth / frontend/depth.py"))
-        if not cfg.stereo_pairs:
-            raise NotImplementedError(_LATER.format(
-                "mono two-view init, solvers/two_view.py"))
+                 noise: pre_mod.ImuNoise, dist=None):
         if cfg.frames_per_dispatch > 1:
-            raise NotImplementedError(_LATER.format(
-                "frames_per_dispatch > 1 chunking"))
+            raise NotImplementedError(
+                "frames_per_dispatch > 1 (the reference's chunking of "
+                "frames into one dispatch) is left out of the port "
+                "(ROADMAP.md)")
         self.cfg = cfg
         self.rig = rig
         self.noise = noise
+        self.dist = dist
+        # the first frame makes a metric map from the rig (stereo pairs
+        # and/or depth priors); a single camera without depth initializes
+        # from two views
+        self.rig_init_ok = bool(cfg.stereo_pairs) or cfg.use_depth
         self.orb = cfg.orb or extractor.OrbConfig()
         self.F = self.orb.n_features
         self.C = cfg.n_cams
@@ -235,7 +250,11 @@ class VIStep:
 
     # ---------------- helpers ----------------
     def extract_bank(self, images):
-        return mt.concat_bands(extractor.extract_multicam(images, self.orb))
+        feats = extractor.extract_multicam(images, self.orb)
+        if self.dist is not None:
+            feats = extractor.undistort_features(feats, self.rig.params,
+                                                 self.dist)
+        return mt.concat_bands(feats)
 
     def band0_feats(self, bank) -> extractor.Features:
         """Camera 0's band of the bank as `Features`."""
@@ -388,7 +407,7 @@ class VIStep:
         return m, c._replace(bg=bias_new[:3], ba=bias_new[3:])
 
     # ------------------ keyframe pipeline ------------------
-    def kf_insert(self, m, c, bank, time, feat_mp, n_in):
+    def kf_insert(self, m, c, bank, time, feat_mp, n_in, depth=None):
         cfg, rig, K = self.cfg, self.rig, self.Kmax
         if int(m.n_kf) >= K:
             m, c = self.recycle(m, c)
@@ -404,6 +423,10 @@ class VIStep:
                 chain_valid=set_rows(c.chain_valid, slot, acc_ok),
                 pre_acc=pre_mod.init_preintegrated(_bias(c)))
 
+        # depth-prior points first: measured metric depth beats
+        # triangulation and needs no parallax (Frame.cc:1916-1922)
+        if cfg.use_depth:
+            m, _ = self.depth_spawn(m, slot, depth)
         for pair in cfg.stereo_pairs:
             m, _ = mt.stereo_spawn(m, slot, rig.kind, self.C, rig, pair,
                                    cap_new=cfg.new_mp_cap,
@@ -455,10 +478,19 @@ class VIStep:
             R=m.kf_R[slot], p=m.kf_t[slot], v=m.kf_v[slot])
         return self.imu_init_maybe(m, c, time)
 
+    def depth_spawn(self, m, slot: int, depth):
+        """Depth-prior landmarks for keyframe `slot` (`use_depth`)."""
+        cfg = self.cfg
+        return depth_mod.spawn_from_depth_multi(
+            m, slot, self.rig.kind, self.C, self.rig, depth,
+            pin_params=cfg.depth_pin or None, cap_new=cfg.depth_cap,
+            max_spawn_depth=cfg.depth_max)
+
     # ------------------ rig init ------------------
-    def rig_init(self, m, c, bank, time):
+    def rig_init(self, m, c, bank, time, depth=None):
         """First-frame metric init from the rig baseline (reference:
-        Tracking::MultiInitialization, src/Tracking.cc:2339)."""
+        Tracking::MultiInitialization, src/Tracking.cc:2339) and/or depth
+        priors (StereoInitialization's depth path, src/Tracking.cc:2232)."""
         cfg, rig = self.cfg, self.rig
         dev = c.p.device
         eye, z3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
@@ -468,6 +500,8 @@ class VIStep:
             bank["cam"], bank["valid"],
             torch.full((self.CF,), -1, dtype=torch.int32, device=dev))
         total = 0
+        if cfg.use_depth:
+            m2, total = self.depth_spawn(m2, 0, depth)
         for pair in cfg.stereo_pairs:
             m2, n = mt.stereo_spawn(m2, 0, rig.kind, self.C, rig, pair,
                                     cap_new=cfg.new_mp_cap,
@@ -487,8 +521,119 @@ class VIStep:
             ref_kf_inliers=torch.as_tensor(total, dtype=torch.int32,
                                            device=dev))
 
+    # ------------------ mono two-view init ------------------
+    def mono_need_ref(self, c, bank, time):
+        """Take this frame as the two-view reference."""
+        return c._replace(ref_bank=bank, ref_time=time,
+                          mode=torch.full_like(c.mode, INIT),
+                          pre_acc=pre_mod.init_preintegrated(_bias(c)))
+
+    def mono_do_init(self, m, c, bank, time, idx, matched,
+                     sample_idx=None):
+        """Two-view reconstruction on camera 0's band (reference:
+        Tracking::MonocularInitialization, src/Tracking.cc:2411): median
+        depth scaled to 1, the triangulated points become landmarks seen
+        by keyframes 0 (the reference frame) and 1 (this frame), a
+        two-keyframe BA, and the chain entry KF0 -> KF1. The scale stays
+        arbitrary until the fix_scale=False inertial init. On failure this
+        frame becomes the reference. One host read (`success`)."""
+        cfg, rig, F, CF = self.cfg, self.rig, self.F, self.CF
+        dev = c.p.device
+        b0 = c.ref_bank
+
+        def bearing_z1(b):
+            ray = cameras.unproject(rig.kind, rig.params[0], b["xy"][:F])
+            z = torch.clamp(ray[:, 2], min=1e-6)
+            return ray[:, :2] / z[:, None]
+
+        safe = torch.where(matched, idx, 0).to(torch.int64)
+        res = two_view.reconstruct(
+            c.gen, bearing_z1(b0)[safe], bearing_z1(bank), matched,
+            focal=rig.params[0, 0], min_inliers=cfg.init_min_inliers,
+            sample_idx=sample_idx)
+        good = res.is_good
+        M = m.mp_pos.shape[0]
+        order = torch.cumsum(good, 0, dtype=torch.int32) - 1
+        write = good & (order < M)
+        n_new = torch.sum(write, dtype=torch.int32)
+        success_t = res.success & (n_new >= cfg.init_min_inliers)
+        success = bool(success_t)
+        if cfg.use_imu:
+            # KF0 -> KF1 interval = everything accumulated since the ref
+            # (written on failure too, and left invalid, as the reference)
+            c = c._replace(
+                chain=pre_mod.chain_set(c.chain, 1, c.pre_acc),
+                chain_valid=set_rows(c.chain_valid, 1,
+                                     success_t & (c.pre_acc.dT > 0)))
+        if not success:
+            return m, c._replace(ref_bank=bank, ref_time=time)
+
+        med = _masked_median(res.points[:, 2], good)
+        scale = 1.0 / torch.clamp(med, min=1e-6)
+        pts_c0 = res.points * scale
+        R01, t01 = res.R, res.t * scale
+        R_w1, t_w1 = R01.T, -R01.T @ t01
+
+        slot_mp = torch.where(write, order, M).to(torch.int64)
+        obs1 = torch.full((CF,), -1, dtype=torch.int32, device=dev)
+        obs1[:F] = torch.where(write, order, -1)
+        # keyframe 0's bindings through the matches; the sentinel row
+        # CF - 1 takes -1, which a real binding there out-maxes
+        hit = write & (idx >= 0)
+        obs0 = scatter_max(
+            torch.full((CF,), -1, dtype=torch.int32, device=dev),
+            torch.where(hit, idx, CF - 1), torch.where(hit, order, -1))
+        mp_pos = torch.zeros((M + 1, 3), device=dev)
+        mp_pos[slot_mp] = pts_c0
+        mp_desc = torch.zeros((M + 1, 256), dtype=torch.int8, device=dev)
+        mp_desc[slot_mp] = bank["desc"][:F]
+        newly = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+        newly[slot_mp] = write
+        newly = newly[:M]
+        m2 = m._replace(
+            mp_pos=torch.where(newly[:, None], mp_pos[:M], m.mp_pos),
+            mp_desc=torch.where(newly[:, None], mp_desc[:M], m.mp_desc),
+            mp_valid=newly, n_mp=n_new)
+        z3 = torch.zeros(3, device=dev)
+        m2 = ms.insert_keyframe(
+            m2, 0, torch.eye(3, device=dev), z3, z3, c.bg, c.ba, c.ref_time,
+            b0["xy"], b0["desc"], b0["level"], b0["sigma2"], b0["cam"],
+            b0["valid"], obs0)
+        m2 = ms.insert_keyframe(
+            m2, 1, R_w1, t_w1, z3, c.bg, c.ba, time,
+            bank["xy"], bank["desc"], bank["level"], bank["sigma2"],
+            bank["cam"], bank["valid"], obs1)
+        m2 = ms.update_mp_geometry(m2)
+        m2, _ = trk.local_ba_step(m2, 1, rig.kind, rig, window=2)
+        c = c._replace(
+            R=R_w1, p=t_w1, mode=torch.full_like(c.mode, OK),
+            last_kf_slot=torch.ones_like(c.last_kf_slot),
+            last_kf_time=time, first_kf_time=c.ref_time,
+            ref_kf_inliers=n_new)
+        if cfg.use_imu:
+            c = c._replace(pre_acc=pre_mod.init_preintegrated(_bias(c)))
+        return m2, c
+
+    def mono_init(self, m, c, bank, time, sample_idx=None):
+        """Match camera 0's band against the reference frame's; with
+        enough matches attempt the two-view init, else slide the
+        reference to this frame."""
+        F = self.F
+        b0 = c.ref_bank
+        idx, _ = matcher.match_nn(
+            bank["desc"][:F], bank["valid"][:F], b0["desc"][:F],
+            b0["valid"][:F], max_dist=matcher.TH_LOW, ratio=0.9,
+            mutual=True)
+        matched = idx >= 0
+        if int(torch.sum(matched)) >= self.cfg.init_min_matches:
+            return self.mono_do_init(m, c, bank, time, idx, matched,
+                                     sample_idx)
+        return m, c._replace(ref_bank=bank, ref_time=time,
+                             pre_acc=pre_mod.init_preintegrated(_bias(c)))
+
     # ------------------ tracking branch ------------------
-    def branch_track(self, m, c, bank, time, pre_f, has_pre: bool):
+    def branch_track(self, m, c, bank, time, pre_f, has_pre: bool,
+                     depth=None):
         cfg, rig = self.cfg, self.rig
         lost = int(c.mode) == LOST
         # prediction: IMU when initialized, else constant velocity; when
@@ -576,12 +721,15 @@ class VIStep:
             self.events += ("lost",)
         need_kf = ok_h and kf_h
         if need_kf:
-            return self.kf_insert(m, c, bank, time, feat_mp, n_in)
+            return self.kf_insert(m, c, bank, time, feat_mp, n_in, depth)
         return m, c
 
     # ------------------ the step ------------------
     def step(self, m: ms.MapState, c: VIStreamCarry, images, time,
-             imu_w, imu_a, imu_dt):
+             imu_w, imu_a, imu_dt, depth=None, sample_idx=None):
+        """depth: [C, H, W] float32 on the device (`use_depth`);
+        sample_idx: optional two-view samples (idx8 [256, 8],
+        idx4 [256, 4]) for a frame that attempts the mono init."""
         self.events = ()
         images = images.to(torch.float32)
         bank = self.extract_bank(images)
@@ -594,11 +742,17 @@ class VIStep:
             if has_pre:
                 c = c._replace(pre_acc=pre_mod.compose(
                     c.pre_acc, pre_mod.rebias(pre_f, c.pre_acc.b)))
-        if int(c.mode) < OK:
-            # NEED_REF and INIT: rig configs never enter INIT
-            m, c = self.rig_init(m, c, bank, time)
+        mode = int(c.mode)
+        if mode < OK and self.rig_init_ok:
+            # rig configs never enter INIT
+            m, c = self.rig_init(m, c, bank, time, depth)
+        elif mode == NEED_REF:
+            c = self.mono_need_ref(c, bank, time)
+        elif mode == INIT:
+            m, c = self.mono_init(m, c, bank, time, sample_idx)
         else:
-            m, c = self.branch_track(m, c, bank, time, pre_f, has_pre)
+            m, c = self.branch_track(m, c, bank, time, pre_f, has_pre,
+                                     depth)
         c = _record(m, c, time, c.mode == OK)
         return m, c._replace(last_time=time,
                              has_last=torch.ones_like(c.has_last))
@@ -618,9 +772,9 @@ class StreamingVITracker:
                  noise: pre_mod.ImuNoise | None = None, seed: int = 0,
                  device=None, dist=None, loop_closer=None,
                  device_lc=False, secondary_map=None, merge_kw=None):
-        if dist is not None:
-            raise NotImplementedError(_LATER.format(
-                "radtan keypoint undistortion, dist"))
+        """dist: optional [C, 4] radtan (k1, k2, p1, p2) per camera of a
+        distorted pinhole rig: the images are the raw ones, and the
+        keypoints are undistorted before anything uses them."""
         if secondary_map is not None or merge_kw is not None:
             raise NotImplementedError(_LATER.format(
                 "Queue 1 item 9: the cross-map weld, "
@@ -635,8 +789,10 @@ class StreamingVITracker:
             1.7e-4, 2e-3, 1.9e-5, 3e-3, cfg.imu_freq,
             device=self.device)).to(self.device)
         self.rig = rig.to(self.device)
+        self.dist = None if dist is None else torch.as_tensor(
+            np.asarray(dist, np.float32)).to(self.device)
         orb_cfg = cfg.orb or extractor.OrbConfig()
-        self._step = VIStep(cfg, self.rig, self.noise)
+        self._step = VIStep(cfg, self.rig, self.noise, self.dist)
         self.map = ms.allocate(cfg.max_kf, cfg.n_cams * orb_cfg.n_features,
                                cfg.max_mp, device=self.device)
         self.carry = init_carry(cfg, seed, device=self.device)
@@ -683,18 +839,26 @@ class StreamingVITracker:
                 dt[j] = t_now - prev
         return w, a, dt
 
-    def push(self, images, time: float, imu_samples=(), depth=None):
+    def push(self, images, time: float, imu_samples=(), depth=None,
+             sample_idx=None):
         """images: [C,H,W] (uint8 or float32); imu_samples: iterable of
-        (w, a, t)."""
-        if depth is not None:
-            raise NotImplementedError(_LATER.format("depth priors"))
+        (w, a, t); depth: [C,H,W] float32 z-depth maps, 0 = hole
+        (`use_depth` configurations only, ignored otherwise); sample_idx:
+        optional two-view samples for this frame (`VIStep.step`)."""
         w, a, dt = self._imu_arrays(list(imu_samples), time)
         dev = self.device
+        dep = None
+        if self.cfg.use_depth:
+            if depth is None:
+                raise ValueError("cfg.use_depth=True but push() got no "
+                                 "depth stack")
+            dep = torch.as_tensor(np.asarray(depth, np.float32)).to(dev)
         imgs = torch.as_tensor(np.asarray(images)).to(dev)
         t = torch.tensor(time, dtype=torch.float32, device=dev)
         self.map, self.carry = self._step.step(
             self.map, self.carry, imgs, t, torch.as_tensor(w).to(dev),
-            torch.as_tensor(a).to(dev), torch.as_tensor(dt).to(dev))
+            torch.as_tensor(a).to(dev), torch.as_tensor(dt).to(dev), dep,
+            sample_idx)
         self.step_events = self._step.events
         if self._lc_step is not None:
             self.map, self.carry, self.lc_carry = self._lc_step(

@@ -1,10 +1,14 @@
 """The flagship benchmark scene, in numpy: the 4-camera rig, its rendered
 sequence, the IMU batching and the tracker configuration of the reference
 package's `bench.py` (`build_rig`, `render_rig_sequence`, the per-frame
-IMU batches and the `VIStreamConfig` / `ImuNoise` values).
+IMU batches and the `VIStreamConfig` / `ImuNoise` values). Also the two
+single-camera inertial scenes: a radtan-distorted EuRoC camera
+(IMU_MONOCULAR) and an RGB-D camera with depth maps (IMU_RGBD), both on
+the flagship's orbit in the same BlobWorld (`make_single_camera_sequence`,
+`single_camera_config_kwargs`).
 
-`chip_smoke.py` and the parity tests render the identical scene without
-importing jax. Sizes are parameters so the tests can cut the scene down.
+`chip_smoke.py` and the parity tests render the identical scenes without
+importing jax. Sizes are parameters so the tests can cut the scenes down.
 """
 
 from __future__ import annotations
@@ -107,3 +111,58 @@ def bench_config_kwargs(n_frames: int = N_FRAMES, max_kf: int = 64,
         kf_max_interval_s=0.25, temporal_refs=2, frames_per_dispatch=1,
         track_map_cap=0, po_rounds=2, po_iters=6, ba_stages=(3, 4),
         obs_cap=24576 if max_kf <= 64 else 131072, local_map_window=10)
+
+
+# ORB-SLAM3's Examples/Monocular-Inertial/EuRoC.yaml: the EuRoC MAV's
+# cam0, a radtan-distorted pinhole, and the yaml's IMU noise (gyro, acc,
+# gyro walk, acc walk) at 200 Hz
+EUROC_W, EUROC_H = 752, 480
+EUROC_PINHOLE = (458.654, 457.296, 367.215, 248.375)
+EUROC_RADTAN = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)
+EUROC_NOISE_SIGMAS = (1.7e-4, 2.0e-3, 1.9393e-5, 3.0e-3, 200.0)
+# an undistorted RGB-D pinhole of the order of the RealSense D435i in
+# ORB-SLAM3's Examples/RGB-D-Inertial
+RGBD_W, RGBD_H = 640, 480
+RGBD_PINHOLE = (382.6, 382.6, 320.0, 240.0)
+
+
+def make_single_camera_sequence(n_frames: int, orbit_frac: float, w: int,
+                                h: int, pinhole, dist=None,
+                                depth: bool = False, rate_mult: int = 10,
+                                world_seed: int = 3, n_points: int = 4000):
+    """One pinhole camera whose frame is the body frame (R_cb = I,
+    t_cb = 0) on the flagship's orbit: (rig_np, uint8 frames
+    [T, 1, h, w], R_wb, t_wb, per-frame IMU batches, depth maps
+    [T, 1, h, w] float32 z-depth with 0 where nothing is hit, or None).
+    `dist`: radtan (k1, k2, p1, p2), the images rendered distorted.
+    rate_mult=10 is 200 Hz IMU at 20 fps."""
+    params = np.zeros(8, np.float32)
+    params[:4] = pinhole
+    rig_np = dict(kind=PINHOLE, params=params[None],
+                  R_cb=np.eye(3, dtype=np.float32)[None],
+                  t_cb=np.zeros((1, 3), np.float32))
+    R_wb, t_wb = synthetic.orbit_trajectory(n_frames, radius=6.0,
+                                            frac=orbit_frac)
+    world = synthetic.BlobWorld.create(seed=world_seed, n=n_points)
+    frames = synthetic.render_sequence(world, PINHOLE, params, R_wb, t_wb,
+                                       w, h, dist=dist)
+    frames = np.clip(frames, 0, 255).astype(np.uint8)[:, None]
+    depths = None
+    if depth:
+        depths = synthetic.render_depth_sequence(
+            world, PINHOLE, params, R_wb, t_wb, w, h).astype(
+                np.float32)[:, None]
+    imu = synthetic.imu_from_trajectory(R_wb, t_wb, 1.0 / FPS_IN,
+                                        rate_mult=rate_mult)
+    return (rig_np, frames, R_wb, t_wb, imu_batches(imu, n_frames),
+            depths)
+
+
+def single_camera_config_kwargs(n_frames: int, w: int, h: int,
+                                max_kf: int = 64,
+                                max_mp: int = 16384) -> dict:
+    """`bench_config_kwargs` for one camera without a stereo pair at
+    200 Hz IMU (the caller sets `orb` and, for RGB-D, `use_depth`)."""
+    kw = bench_config_kwargs(n_frames, max_kf=max_kf, max_mp=max_mp)
+    kw.update(img_w=w, img_h=h, n_cams=1, stereo_pairs=(), imu_freq=200.0)
+    return kw

@@ -4,7 +4,8 @@
 `compact_landmarks`, `decimate_keyframes` and `predict_scale_level` of
 `openmavis_tpu/slam_map/map_state.py`;
 reference: the KF/MP pointer graph of src/Map.cc, src/KeyFrame.cc,
-src/MapPoint.cc).
+src/MapPoint.cc), and `write_new_landmarks`, the landmark allocation that
+the stereo, temporal and depth spawns share.
 
 Keyframes and landmarks live in pre-allocated tensors with validity masks;
 `kf_obs` [K, F] holds the landmark id per keyframe feature (-1 = none).
@@ -171,6 +172,37 @@ def insert_keyframe(m: MapState, slot: int, R, t, v, bg, ba, time,
         mp_desc=torch.where(touched[:, None], new_desc[:M], m.mp_desc),
         mp_last_kf=torch.where(touched, torch.full_like(m.mp_last_kf, slot),
                                m.mp_last_kf))
+
+
+def write_new_landmarks(m: MapState, good, X_w, desc, slot_new: int,
+                         cap_new: int):
+    """Allocate up to `cap_new` landmark slots after n_mp for the `good`
+    rows, in row order (dump row M for the rest): the shared tail of the
+    spawn functions (stereo, temporal, depth).
+    Returns (m', slot_mp [F], write [F], n_written)."""
+    M = m.mp_pos.shape[0]
+    order = torch.cumsum(good.to(torch.int32), 0) - 1
+    slot_mp = m.n_mp + order
+    write = good & (order < cap_new) & (slot_mp < M)
+    tgt = torch.where(write, slot_mp, M).to(torch.int64)
+    dev = good.device
+    mp_pos = torch.zeros((M + 1, 3), dtype=m.mp_pos.dtype, device=dev)
+    mp_pos[tgt] = X_w
+    mp_desc = torch.zeros((M + 1, 256), dtype=torch.int8, device=dev)
+    mp_desc[tgt] = desc
+    newly = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+    newly[tgt] = write
+    newly = newly[:M]
+    n = torch.sum(write, dtype=torch.int32)
+    slot_t = torch.full_like(m.mp_first_kf, slot_new)
+    m = m._replace(
+        mp_pos=torch.where(newly[:, None], mp_pos[:M], m.mp_pos),
+        mp_desc=torch.where(newly[:, None], mp_desc[:M], m.mp_desc),
+        mp_valid=m.mp_valid | newly,
+        mp_first_kf=torch.where(newly, slot_t, m.mp_first_kf),
+        mp_last_kf=torch.where(newly, slot_t, m.mp_last_kf),
+        n_mp=m.n_mp + n)
+    return m, slot_mp.to(torch.int32), write, n
 
 
 def update_mp_geometry(m: MapState, scale: float = 1.2,

@@ -16,7 +16,8 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "for n in ('pipeline.streaming_lc', 'pipeline.loop_closing',\n"
         "          'solvers.sim3', 'solvers.pnp', 'optim.pose_graph',\n"
-        "          'optim.sim3_refine'):\n"
+        "          'optim.sim3_refine', 'solvers.two_view',\n"
+        "          'frontend.depth'):\n"
         "    assert 'openmavis_tpu_torch.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
