@@ -2,7 +2,8 @@
 
 The JAX side is given as dicts of numpy arrays keyed by field name (for a
 NamedTuple `x`: `{k: np.asarray(v) for k, v in x._asdict().items()}`;
-nested NamedTuples as nested dicts). `*_from_numpy` builds the port's
+nested NamedTuples as nested dicts; the host-policy `MultiTracker`'s
+attributes as `multi_tracker_state_to_numpy` lays them out). `*_from_numpy` builds the port's
 tensors on a given device (the current CUDA device when none is given)
 and `*_to_numpy` goes back. Every field takes
 the dtype the port allocates it with: int32 indices, int8 descriptor
@@ -17,6 +18,7 @@ import torch
 from . import resolve_device
 from .imu import preintegration as pre_mod
 from .optim.reprojection import RigParams
+from .pipeline import multi_tracking as mt
 from .pipeline import streaming_lc as slc
 from .pipeline import streaming_vi as svi
 from .pipeline.streaming import TrajRing
@@ -140,3 +142,64 @@ def lc_carry_from_numpy(d: dict, device=None) -> slc.LCCarry:
 
 def lc_carry_to_numpy(lcc: slc.LCCarry) -> dict:
     return {k: _np(v) for k, v in lcc._asdict().items()}
+
+
+# MultiTracker attributes carried as host values, and those on the device
+_MT_HOST = ("state", "n_kf", "last_kf_slot", "last_kf_time", "last_time",
+            "first_kf_time", "ref_kf_inliers", "viba_stage",
+            "imu_initialized", "_reentry_boost", "lost_frames",
+            "_init_time")
+_MT_TENSORS = ("R", "t", "v", "bias", "vel_R", "vel_t")
+
+
+def _imu_queue(q) -> list:
+    return [(np.array(w, np.float32), np.array(a, np.float32), float(t))
+            for (w, a, t) in q]
+
+
+def multi_tracker_state_to_numpy(tr: mt.MultiTracker) -> dict:
+    """A port `MultiTracker`'s state as host values: the map as a numpy
+    dict, the pose, velocity, bias and motion model as numpy arrays, the
+    counters and times as Python values, `kf_pre` as a list of numpy
+    dicts or None, the two IMU queues, the trajectory list, the two-view
+    reference bank (numpy dict or None) and `key`, the generator's seed as
+    a [2] uint32 PRNG key (see `carry_from_numpy`)."""
+    d = {k: getattr(tr, k) for k in _MT_HOST}
+    d.update({k: _np(getattr(tr, k)) for k in _MT_TENSORS})
+    d["map"] = map_to_numpy(tr.map)
+    d["kf_pre"] = [None if p is None else pre_to_numpy(p)
+                   for p in tr.kf_pre]
+    d["_imu_frame"] = _imu_queue(tr._imu_frame)
+    d["_imu_kf"] = _imu_queue(tr._imu_kf)
+    d["trajectory"] = [(tm, mid, ref, np.array(R), np.array(t))
+                       for (tm, mid, ref, R, t) in tr.trajectory]
+    d["_init_bank"] = (None if tr._init_bank is None else
+                       {k: _np(v) for k, v in tr._init_bank.items()})
+    seed = tr.gen.initial_seed()
+    d["key"] = np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    return d
+
+
+def multi_tracker_state_from_numpy(d: dict, tr: mt.MultiTracker) -> None:
+    """Set the state `d` (laid out as `multi_tracker_state_to_numpy` does;
+    from the reference package: its `MultiTracker`'s attributes of the
+    same names as numpy) on the port tracker `tr`, on `tr.device`. The
+    PRNG key, where given, seeds `tr.gen` as `carry_from_numpy` does."""
+    dev = tr.device
+    for k in _MT_HOST:
+        setattr(tr, k, d[k])
+    for k in _MT_TENSORS:
+        setattr(tr, k, _t(d[k], torch.float32, dev))
+    tr.map = map_from_numpy(d["map"], dev)
+    tr.kf_pre = [None if p is None else pre_from_numpy(p, dev)
+                 for p in d["kf_pre"]]
+    tr._imu_frame = _imu_queue(d["_imu_frame"])
+    tr._imu_kf = _imu_queue(d["_imu_kf"])
+    tr.trajectory = [(float(tm), int(mid), int(ref),
+                      np.array(R, np.float32), np.array(t, np.float32))
+                     for (tm, mid, ref, R, t) in d["trajectory"]]
+    tr._init_bank = (None if d["_init_bank"] is None else
+                     _fields_from(d["_init_bank"], _BANK_DTYPES, dev))
+    if "key" in d:
+        key = np.asarray(d["key"]).astype(np.uint64)
+        tr.gen.manual_seed(int((key[0] << np.uint64(32)) | key[1]))

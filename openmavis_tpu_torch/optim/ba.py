@@ -187,7 +187,8 @@ def bundle_adjust(state: BAState, obs: BAObservations, rig: RigParams,
     inertial chain (None = visual-only, D = 6); stages: LM iterations per
     stage, observations chi2-re-gated between stages. `rows_per_kf`
     declares the observation table as K contiguous blocks of that many
-    rows (pose blocks then reduce by reshape-sum).
+    rows (pose blocks then reduce by reshape-sum); a table on the CPU
+    that is not so laid out raises ValueError.
     Returns (state, obs_inlier [O] bool, final_chi2)."""
     D = 15 if edges is not None else 6
     K = state.R.shape[0]
@@ -196,6 +197,13 @@ def bundle_adjust(state: BAState, obs: BAObservations, rig: RigParams,
     dt, dev = state.t.dtype, state.t.device
     sorted_rows = rows_per_kf is not None and rows_per_kf * K == O
     kf64 = obs.kf.to(torch.int64)
+    if sorted_rows and kf64.device.type == "cpu" and not torch.equal(
+            kf64, torch.arange(K).repeat_interleave(rows_per_kf)):
+        # checked on the CPU only: on the card it would cost a sync
+        raise ValueError(
+            "bundle_adjust: rows_per_kf=%d declares the observation table "
+            "as %d contiguous keyframe blocks, but obs.kf is not laid out "
+            "so" % (rows_per_kf, K))
     flat = kf64 * M + obs.mp.to(torch.int64)
 
     def assemble(st: BAState, active):

@@ -1,10 +1,14 @@
-"""Multi-camera visual-inertial tracking and mapping steps (port of
-`concat_bands`, `_match_bank`, `_feat_mp_from`, `_compact_matches`,
-`_local_map_compact`, `track_step_multi`, `track_step_multi_vi`, `_lap`, `stereo_spawn`,
+"""Multi-camera visual-inertial tracking: the per-frame and keyframe
+steps (port of `concat_bands`, `frame_step_multi`, `_match_bank`,
+`_feat_mp_from`, `_compact_matches`, `_local_map_compact`,
+`track_step_multi`, `track_step_multi_vi`, `_lap`, `stereo_spawn`,
 `_spawn_pair_band`, `temporal_spawn_multi`, `bind_landmarks_multi`,
 `vi_window_ba_step` and `imu_init_step` of
 `openmavis_tpu/pipeline/multi_tracking.py`; reference: the multi-camera
-paths of src/Tracking.cc, src/Frame.cc:1767-1949, src/LocalMapping.cc).
+paths of src/Tracking.cc, src/Frame.cc:1767-1949, src/LocalMapping.cc),
+and the host-policy rig tracker built on them, `MultiTracker` with
+`MultiTrackerConfig` (reference: System::TrackMulti src/System.cc:311,
+Tracking::GrabImageMulti src/Tracking.cc:1410).
 
 Per-frame features of all C cameras form one bank of C*F slots (band c
 occupies [c*F, (c+1)*F)).
@@ -12,16 +16,27 @@ occupies [c*F, (c+1)*F)).
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
 import torch
 
+from .. import resolve_device
+from ..frontend import depth as depth_mod
 from ..frontend import extractor, matcher
-from ..geometry import triangulation
+from ..geometry import cameras, triangulation
 from ..imu import preintegration as pre_mod
 from ..optim import ba, global_ba, inertial_init, pose_opt
 from ..optim.reprojection import RigParams
 from ..ops import compact_indices, scatter_max, set_rows
 from ..slam_map import map_state as ms
+from ..solvers import two_view
 from . import tracking as mono
+
+# what a part of the reference package that the port leaves for a later
+# slice raises with
+_LATER = "not ported yet; queued in ROADMAP.md ({})"
 
 
 def concat_bands(feats: extractor.Features) -> dict:
@@ -34,6 +49,31 @@ def concat_bands(feats: extractor.Features) -> dict:
                 level=feats.level.reshape(C * F),
                 sigma2=feats.sigma2.reshape(C * F), cam=cam,
                 valid=feats.valid.reshape(C * F))
+
+
+def frame_step_multi(m: ms.MapState, images, R_pred, t_pred, rig_kind: int,
+                     n_cams: int, rig: RigParams, orb_cfg, img_w: float,
+                     img_h: float, radius, min_last_kf: int = -1,
+                     dist=None):
+    """The fused per-frame step: multi-camera extraction (with radtan
+    `dist`, undistortion), banding and `track_step_multi` as one function.
+    Returns track_step_multi's outputs + (bank,)."""
+    feats = extractor.extract_multicam(images, orb_cfg)
+    if dist is not None:
+        feats = extractor.undistort_features(feats, rig.params, dist)
+    bank = concat_bands(feats)
+    return track_step_multi(m, bank, R_pred, t_pred, rig_kind, n_cams, rig,
+                            img_w, img_h, radius, min_last_kf) + (bank,)
+
+
+def band0_feats(bank, F: int) -> extractor.Features:
+    """Camera 0's band (the first F slots) of a bank as single-camera
+    Features, for relocalization."""
+    zero = torch.zeros(F, device=bank["xy"].device)
+    return extractor.Features(
+        xy=bank["xy"][:F], response=zero, angle=zero,
+        level=bank["level"][:F], sigma2=bank["sigma2"][:F],
+        desc=bank["desc"][:F], valid=bank["valid"][:F])
 
 
 def _match_bank(m: ms.MapState, bank, R_pred, t_pred, rig_kind: int,
@@ -468,3 +508,712 @@ def imu_init_step(m: ms.MapState, pre_b, edge_valid, bias, first: bool,
     m = mono._writeback_gba(m, state, inlier, chi, observed, kf_local,
                             feat, obs.valid, with_imu=True)
     return ms.update_mp_geometry(m), bias_new, True
+
+
+# ---------------------------------------------------------------------------
+# The host-policy rig tracker
+# ---------------------------------------------------------------------------
+
+@dataclass
+class MultiTrackerConfig:
+    img_w: int = 640
+    img_h: int = 480
+    n_cams: int = 4
+    stereo_pairs: tuple = ((0, 1),)    # overlapping rig pairs
+    # per-camera (colBegin, colEnd) stereo lapping areas; () = full width
+    # (reference: CameraN.overlappingBegin/End, mvLappingArea)
+    lapping: tuple = ()
+    orb: extractor.OrbConfig = field(default_factory=extractor.OrbConfig)
+    max_kf: int = 64
+    max_mp: int = 16384
+    match_radius: float = 15.0
+    relost_radius: float = 30.0
+    # frames to keep the wide search window after recovering from LOST
+    # (reference: doubled search th when recently relocalized,
+    # src/Tracking.cc:2020-2060)
+    reentry_boost_frames: int = 5
+    min_inliers_track: int = 30
+    local_map_window: Optional[int] = None
+    fused_frontend: bool = False
+    kf_min_inlier_frac: float = 0.75
+    kf_min_inliers_abs: int = 120
+    kf_max_interval_s: float = 0.5     # inertial KF cadence (Tracking.cc:3003)
+    new_mp_cap: int = 384
+    ba_window: int = 8
+    imu_freq: float = 200.0
+    imu_buf: int = 256                 # max samples between keyframes
+    imu_init_kfs: int = 8              # KFs before IMU initialization
+    use_imu: bool = True
+    # VIBA refinement schedule, seconds after the first keyframe
+    # (reference: VIBA1 at mTinit>5s, VIBA2 at >15s, LocalMapping.cc:224-265)
+    viba1_time: float = 5.0
+    viba2_time: float = 15.0
+    # mono-inertial two-view initialization thresholds
+    init_min_matches: int = 80
+    init_min_inliers: int = 50
+    # temporal triangulation: reference KFs per camera band
+    temporal_refs: int = 2
+    # frames to coast in LOST before abandoning the map for a fresh one in
+    # the atlas (reference: CreateMapInAtlas, src/Tracking.cc:1953-1968);
+    # read only with an atlas, which is not ported yet
+    max_lost_frames: int = 20
+    # external per-camera depth priors (reference: depth maps sampled at
+    # undistorted keypoints into pseudo-stereo, src/Frame.cc:1659-1765):
+    # process_frame takes a [C, H, W] z-depth stack; unbound keyframe
+    # features spawn metric landmarks from it (frontend/depth.py)
+    use_depth: bool = False
+    depth_cap: int = 256
+    depth_max: float = 25.0
+    depth_pin: tuple = ()     # per-cam virtual pinhole; () = raw frame
+
+    @property
+    def metric_scale(self) -> bool:
+        """True when the rig baseline provides metric scale (any stereo
+        pair) or depth priors do; mono-inertial estimates scale in the
+        IMU init instead."""
+        return len(self.stereo_pairs) > 0 or self.use_depth
+
+
+class MultiTracker:
+    """Multi-camera (optionally inertial) tracker with its policy on the
+    host: one `process_frame` per frame, IMU samples queued by `feed_imu`.
+
+    Usage:
+        tr = MultiTracker(rig, cfg, noise)        # on the current GPU
+        for t, images, samples in stream:
+            for w, a, ts in samples:
+                tr.feed_imu(w, a, ts)
+            tr.process_frame(images, t)
+        times, R, t = tr.get_trajectory()
+
+    The map and the pose live on `device`; the state machine, the IMU
+    queues, the per-keyframe preintegration list and the trajectory live
+    on the host, as in the reference package. The host reads device
+    values where the reference does: the inlier count of every tracking
+    step, the relocalization's and the two-view init's success, the
+    landmark counts of the rig init, the culled keyframes, the IMU init's
+    sanity, and the keyframe pose each trajectory entry is stored
+    against."""
+
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+    def __init__(self, rig: RigParams, cfg: MultiTrackerConfig,
+                 noise: pre_mod.ImuNoise | None = None, seed: int = 0,
+                 loop_closer=None, atlas=None, dist=None, device=None):
+        """dist: optional [C, 4] radtan (k1, k2, p1, p2) per camera of a
+        distorted pinhole rig; device: where the map and the pose live
+        (the current CUDA device when None)."""
+        if atlas is not None:
+            raise NotImplementedError(_LATER.format(
+                "Queue 1 item 6: multi-map, the atlas and its tracker arms"))
+        if loop_closer is not None:
+            raise NotImplementedError(_LATER.format(
+                "Queue 1 item 5: host place recognition and "
+                "loop_closing.LoopCloser"))
+        self.device = dev = resolve_device(device)
+        self.rig = rig.to(dev)
+        self.cfg = cfg
+        self.dist = None if dist is None else torch.as_tensor(
+            np.asarray(dist, np.float32)).to(dev)
+        self.noise = (noise or pre_mod.ImuNoise.from_sigmas(
+            1.7e-4, 2e-3, 1.9e-5, 3e-3, cfg.imu_freq, device=dev)).to(dev)
+        self.state = self.NOT_INITIALIZED
+        CF = cfg.n_cams * cfg.orb.n_features
+        self.map = ms.allocate(cfg.max_kf, CF, cfg.max_mp, device=dev)
+        self.map_id = 0
+        self.lost_frames = 0
+        # localization-only: track, never extend the map
+        # (reference: ActivateLocalizationMode, System.h:132)
+        self.localization_only = False
+        # replaces the reference's PRNG key (two-view and PnP RANSAC draws)
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        self.R = torch.eye(3, device=dev)
+        self.t = torch.zeros(3, device=dev)
+        self.v = torch.zeros(3, device=dev)
+        self.bias = torch.zeros(6, device=dev)
+        self.vel_R = torch.eye(3, device=dev)
+        self.vel_t = torch.zeros(3, device=dev)
+        self.imu_initialized = False
+        self._reentry_boost = 0
+        # staged init bookkeeping: 0 = not initialized, 1 = initial stage
+        # done, 2 = VIBA1 done, 3 = VIBA2 done (reference schedule at
+        # src/LocalMapping.cc:224-265)
+        self.viba_stage = 0
+        self.first_kf_time = None
+        self.last_kf_slot = -1
+        self.last_kf_time = None
+        self.last_time = None
+        self.ref_kf_inliers = 0
+        self.n_kf = 0
+        self.trajectory = []
+        self._init_bank = None          # mono-inertial two-view reference
+        self._init_time = None
+        self._depth_cur = None
+        # IMU queues (host): samples since the last frame and since the
+        # last keyframe
+        self._imu_frame = []
+        self._imu_kf = []
+        # per-keyframe preintegrations (Preintegrated or None, index = slot)
+        self.kf_pre = []
+
+    def _ext(self, images) -> extractor.Features:
+        feats = extractor.extract_multicam(images, self.cfg.orb)
+        if self.dist is not None:
+            feats = extractor.undistort_features(feats, self.rig.params,
+                                                 self.dist)
+        return feats
+
+    # -- IMU ---------------------------------------------------------------
+    def feed_imu(self, w, a, t):
+        """Queue one IMU sample (gyro rad/s, accel m/s^2, timestamp)."""
+        self._imu_frame.append((np.asarray(w, np.float32),
+                                np.asarray(a, np.float32), float(t)))
+        self._imu_kf.append(self._imu_frame[-1])
+
+    def _integrate(self, queue, t_end, t_start):
+        """Preintegrate the queued samples over (t_start, t_end]: the
+        reference's sample list (at most `imu_buf` samples, the last one
+        held up to t_end), without its zero-dt padding to `imu_buf`,
+        which is an identity step up to float32 rounding."""
+        n = self.cfg.imu_buf
+        ws = np.zeros((n, 3), np.float32)
+        accs = np.zeros((n, 3), np.float32)
+        dts = np.zeros((n,), np.float32)
+        prev_t = t_start
+        j = 0
+        for (w, a, t) in queue:
+            if t <= t_start or j >= n:
+                continue
+            dt = min(t, t_end) - prev_t
+            if dt <= 0:
+                continue
+            ws[j], accs[j], dts[j] = w, a, dt
+            prev_t = min(t, t_end)
+            j += 1
+        if j < n and prev_t < t_end and j > 0:
+            ws[j], accs[j] = ws[j - 1], accs[j - 1]
+            dts[j] = t_end - prev_t
+            j += 1
+        dev = self.device
+        return pre_mod.integrate(
+            torch.as_tensor(ws[:j]).to(dev), torch.as_tensor(accs[:j]).to(dev),
+            torch.as_tensor(dts[:j]).to(dev), self.bias, self.noise)
+
+    # -- main --------------------------------------------------------------
+    def process_frame(self, images, time: float, depth=None,
+                      sample_idx=None):
+        """images: [C, H, W] (uint8 or float32; numpy or a tensor); depth:
+        [C, H, W] z-depth stack (cfg.use_depth rigs only); sample_idx:
+        optional RANSAC samples for this frame, handed to whichever solver
+        runs: the two-view init's (idx8 [256, 8], idx4 [256, 4]) or the
+        relocalization's ([3, n_hyp, 6]). Returns whether the frame
+        tracked (or initialized)."""
+        cfg = self.cfg
+        dev = self.device
+        images = torch.as_tensor(images).to(device=dev, dtype=torch.float32)
+        if cfg.use_depth:
+            if depth is None:
+                raise ValueError("cfg.use_depth=True but process_frame "
+                                 "got no depth stack")
+            self._depth_cur = torch.as_tensor(depth).to(
+                device=dev, dtype=torch.float32)
+
+        if self.state == self.NOT_INITIALIZED:
+            bank = concat_bands(self._ext(images))
+            ok = self._initialize(bank, time, sample_idx)
+            self._record(time)
+            self.last_time = time
+            self._imu_frame = []
+            return ok
+
+        # frame-interval preintegration (always, when inertial: the
+        # prediction and the VI pose optimization's edge need it)
+        pre_f = None
+        if cfg.use_imu and self._imu_frame and self.last_time is not None:
+            pre_f = self._integrate(self._imu_frame, time, self.last_time)
+        self._imu_frame = []
+
+        # pose prediction: IMU once initialized, else constant velocity
+        if self.imu_initialized and pre_f is not None:
+            R_pred, t_pred, v_pred = pre_mod.predict_state(
+                self.R, self.t, self.v, pre_f, self.bias)
+        else:
+            R_pred = self.R @ self.vel_R
+            t_pred = self.t + self.R @ self.vel_t
+            v_pred = self.v
+
+        # relocalization attempt when LOST (reference: Tracking.cc:3543)
+        bank0 = None
+        if self.state == self.LOST and self.n_kf >= 2:
+            bank0 = concat_bands(self._ext(images))
+            ok_r, R_r, t_r, _ = mono.relocalize_step(
+                self.map, self._band0_feats(bank0), self.gen,
+                self.rig.kind, self.rig, sample_idx=sample_idx)
+            if bool(ok_r):
+                R_pred, t_pred = R_r, t_r
+                self.vel_R = torch.eye(3, device=dev)
+                self.vel_t = torch.zeros(3, device=dev)
+
+        min_last = (-1 if cfg.local_map_window is None
+                    else self.last_kf_slot - cfg.local_map_window)
+        # post-recovery boost: search with the wide window for a few
+        # frames after a LOST episode (reference: TrackWithMotionModel
+        # doubles th when recently relocalized, src/Tracking.cc:2020-2060)
+        radius = (cfg.relost_radius if self._reentry_boost > 0
+                  else cfg.match_radius)
+        W, H = float(cfg.img_w), float(cfg.img_h)
+        use_vi = self.imu_initialized and pre_f is not None
+        if use_vi:
+            bank = bank0 if bank0 is not None else concat_bands(
+                self._ext(images))
+            anchor = pose_opt.InertialState(
+                R=self.R, p=self.t, v=self.v,
+                bg=self.bias[:3], ba=self.bias[3:])
+            pred = pose_opt.InertialState(
+                R=R_pred, p=t_pred, v=v_pred,
+                bg=self.bias[:3], ba=self.bias[3:])
+            st, feat_mp, n_in, vis, keep = track_step_multi_vi(
+                self.map, bank, anchor, pred, pre_f, self.rig.kind,
+                cfg.n_cams, self.rig, W, H, cfg.match_radius, min_last)
+            R, t = st.R, st.p
+        elif cfg.fused_frontend:
+            R, t, feat_mp, n_in, vis, keep, bank = frame_step_multi(
+                self.map, images, R_pred, t_pred, self.rig.kind,
+                cfg.n_cams, self.rig, cfg.orb, W, H, radius, min_last,
+                self.dist)
+        else:
+            bank = bank0 if bank0 is not None else concat_bands(
+                self._ext(images))
+            R, t, feat_mp, n_in, vis, keep = track_step_multi(
+                self.map, bank, R_pred, t_pred, self.rig.kind, cfg.n_cams,
+                self.rig, W, H, radius, min_last)
+        n_in = int(n_in)
+        if n_in < cfg.min_inliers_track:
+            # wide visual retry from the last confirmed pose
+            R, t, feat_mp, n_in, vis, keep = track_step_multi(
+                self.map, bank, self.R, self.t, self.rig.kind, cfg.n_cams,
+                self.rig, W, H, cfg.relost_radius)
+            n_in = int(n_in)
+            if n_in >= cfg.min_inliers_track:
+                self._reentry_boost = cfg.reentry_boost_frames
+            if n_in < cfg.min_inliers_track:
+                self.state = self.LOST
+                self.lost_frames += 1
+                if self.imu_initialized and pre_f is not None:
+                    # RECENTLY_LOST: coast on the IMU prediction so the
+                    # pose stays usable for relocalization and re-entry
+                    # (reference: Tracking.cc:1929-1940)
+                    self.R, self.t, self.v = R_pred, t_pred, v_pred
+                self._record(time)
+                self.last_time = time
+                return False
+            use_vi = False
+
+        dt = max(time - (self.last_time if self.last_time is not None
+                         else time - 1e-3), 1e-3)
+        self.vel_R = self.R.T @ R
+        self.vel_t = self.R.T @ (t - self.t)
+        if use_vi:
+            self.v = st.v
+            self.bias = torch.cat([st.bg, st.ba])
+        else:
+            self.v = (t - self.t) / dt
+        self.R, self.t = R, t
+        if self.state == self.LOST:
+            self._reentry_boost = cfg.reentry_boost_frames
+        elif self._reentry_boost > 0:
+            self._reentry_boost -= 1
+        self.state = self.OK
+        self.lost_frames = 0
+
+        need_kf = (n_in < cfg.kf_min_inlier_frac
+                   * max(self.ref_kf_inliers, 1)
+                   or n_in < cfg.kf_min_inliers_abs
+                   or (cfg.use_imu and self.last_kf_time is not None
+                       and time - self.last_kf_time > cfg.kf_max_interval_s))
+        if need_kf and not self.localization_only:
+            if self.n_kf >= cfg.max_kf:
+                self._recycle_slots()
+            if self.n_kf < cfg.max_kf:
+                self._insert_keyframe(bank, time, feat_mp, n_in)
+
+        self._record(time)
+        self.last_time = time
+        return True
+
+    def _record(self, time):
+        """Store the frame's pose relative to the latest keyframe, so that
+        later map corrections (the IMU init's rotation, a global BA) move
+        the whole trajectory (reference: mlRelativeFramePoses replayed
+        against the final keyframe poses, src/System.cc:717-1090)."""
+        ref = max(self.last_kf_slot, 0)
+        # one read: the keyframe's pose and the frame's
+        x = torch.cat([self.map.kf_R[ref].reshape(9), self.map.kf_t[ref],
+                       self.R.reshape(9), self.t]).cpu().numpy()
+        R_ref, t_ref, R, t = x[:9].reshape(3, 3), x[9:12], \
+            x[12:21].reshape(3, 3), x[21:]
+        self.trajectory.append((time, self.map_id, ref, R_ref.T @ R,
+                                R_ref.T @ (t - t_ref)))
+
+    def get_trajectory(self):
+        """(times, R [T,3,3], t [T,3]) against the final map."""
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        times, Rs, ts = [], [], []
+        for (tm, _, ref, R_rel, t_rel) in self.trajectory:
+            times.append(tm)
+            Rs.append(kf_R[ref] @ R_rel)
+            ts.append(kf_t[ref] + kf_R[ref] @ t_rel)
+        return (np.asarray(times),
+                np.stack(Rs) if Rs else np.zeros((0, 3, 3)),
+                np.stack(ts) if ts else np.zeros((0, 3)))
+
+    def _recycle_slots(self):
+        """Compact the keyframe and landmark slabs when full, welding the
+        preintegration chain across dropped keyframes (the reference's
+        IMU::Preintegrated::MergePrevious, src/ImuTypes.cc:241-263, as the
+        closed-form composition of the adjoining intervals)."""
+        m = self.map
+        if int(m.kf_valid.sum()) >= self.cfg.max_kf:
+            m, _ = ms.decimate_keyframes(m, self.n_kf - 1)
+            self.map = m
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        self.map, self.trajectory, old_of_new, new_of_old, _ = \
+            mono.recycle_map_slots(self.map, self.trajectory, self.map_id)
+        # new interval k covers everything between consecutive surviving
+        # keyframes: the old intervals in (old_of_new[k-1], old_of_new[k]]
+        old_pre = self.kf_pre
+        n_new = int(self.map.n_kf)
+        new_pre: list = [None] * n_new
+        prev_old = -1
+        for k in range(n_new):
+            cur_old = int(old_of_new[k])
+            acc = None
+            for j in range(prev_old + 1, cur_old + 1):
+                p = old_pre[j] if j < len(old_pre) else None
+                if p is None:
+                    continue
+                acc = p if acc is None else pre_mod.compose(acc, p)
+            new_pre[k] = acc
+            prev_old = cur_old
+        self.kf_pre = new_pre
+        if self.last_kf_slot >= 0 and kf_valid[self.last_kf_slot]:
+            self.last_kf_slot = int(new_of_old[self.last_kf_slot])
+        else:
+            self.last_kf_slot = n_new - 1
+        self.n_kf = n_new
+
+    def _band0_feats(self, bank) -> extractor.Features:
+        return band0_feats(bank, self.cfg.orb.n_features)
+
+    def _initialize(self, bank, time, sample_idx=None):
+        """Rigs with overlapping pairs (or depth) triangulate the first
+        frame directly (metric); a single camera runs the two-view
+        reconstruction and gets its scale in the IMU init."""
+        if not self.cfg.stereo_pairs and not self.cfg.use_depth:
+            return self._initialize_mono(bank, time, sample_idx)
+        return self._initialize_rig(bank, time)
+
+    def _initialize_mono(self, bank, time, sample_idx=None):
+        """Two-view monocular init on camera 0's band (reference:
+        Tracking::MonocularInitialization, src/Tracking.cc:2411; scale
+        comes later from InertialOptimization with fix_scale=False)."""
+        cfg, rig, dev = self.cfg, self.rig, self.device
+        F = cfg.orb.n_features
+        if self._init_bank is None:
+            self._init_bank, self._init_time = bank, time
+            return False
+        b0 = self._init_bank
+        idx, _ = matcher.match_nn(
+            bank["desc"][:F], bank["valid"][:F],
+            b0["desc"][:F], b0["valid"][:F],
+            max_dist=matcher.TH_LOW, ratio=0.9, mutual=True)
+        if int((idx >= 0).sum()) < cfg.init_min_matches:
+            self._init_bank, self._init_time = bank, time
+            return False
+
+        def bearing_z1(b):
+            ray = cameras.unproject(rig.kind, rig.params[0], b["xy"][:F])
+            z = torch.clamp(ray[:, 2], min=1e-6)
+            return ray[:, :2] / z[:, None]
+
+        matched = idx >= 0
+        safe = torch.where(matched, idx, 0).to(torch.int64)
+        res = two_view.reconstruct(
+            self.gen, bearing_z1(b0)[safe], bearing_z1(bank), matched,
+            focal=float(rig.params[0, 0]), min_inliers=cfg.init_min_inliers,
+            sample_idx=sample_idx)
+        if not bool(res.success):
+            return False
+        good = res.is_good.cpu().numpy()
+        points = res.points.cpu().numpy()
+        depths = points[:, 2]
+        med = float(np.median(depths[good])) if good.any() else 1.0
+        scale = 1.0 / max(med, 1e-6)
+        pts_c0 = points * scale
+        R01 = res.R.cpu().numpy()
+        t01 = res.t.cpu().numpy() * scale
+        R_w1, t_w1 = R01.T, -R01.T @ t01
+
+        CF = bank["xy"].shape[0]
+        M = cfg.max_mp
+        order = np.cumsum(good) - 1
+        slot_np = np.where(good, order, -1).astype(np.int32)
+        obs1 = np.full((CF,), -1, np.int32)
+        obs1[:F] = slot_np
+        obs0 = np.full((CF,), -1, np.int32)
+        idx_np = idx.cpu().numpy()
+        sel = good & (idx_np >= 0)
+        obs0[idx_np[sel]] = slot_np[sel]
+        n_new = int(good.sum())
+
+        m = self.map
+        write = torch.as_tensor(good & (order < M)).to(dev)
+        tgt = torch.where(write, torch.as_tensor(slot_np).to(dev),
+                          M).to(torch.int64)
+        mp_pos = torch.zeros((M + 1, 3), device=dev)
+        mp_pos[tgt] = torch.as_tensor(pts_c0).to(dev)
+        mp_desc = torch.zeros((M + 1, 256), dtype=torch.int8, device=dev)
+        mp_desc[tgt] = bank["desc"][:F]
+        newly = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+        newly[tgt] = write
+        newly = newly[:M]
+        m = m._replace(
+            mp_pos=torch.where(newly[:, None], mp_pos[:M], m.mp_pos),
+            mp_desc=torch.where(newly[:, None], mp_desc[:M], m.mp_desc),
+            mp_valid=newly,
+            n_mp=torch.tensor(n_new, dtype=torch.int32, device=dev))
+        z3 = torch.zeros(3, device=dev)
+        m = ms.insert_keyframe(
+            m, 0, torch.eye(3, device=dev), z3, z3, z3, z3, self._init_time,
+            b0["xy"], b0["desc"], b0["level"], b0["sigma2"], b0["cam"],
+            b0["valid"], torch.as_tensor(obs0).to(dev))
+        R_w1 = torch.as_tensor(R_w1).to(dev)
+        t_w1 = torch.as_tensor(t_w1).to(dev)
+        m = ms.insert_keyframe(
+            m, 1, R_w1, t_w1, z3, z3, z3, time, bank["xy"], bank["desc"],
+            bank["level"], bank["sigma2"], bank["cam"], bank["valid"],
+            torch.as_tensor(obs1).to(dev))
+        m = ms.update_mp_geometry(m)
+        self.map, _ = mono.local_ba_step(m, 1, rig.kind, rig, window=2)
+        self.R, self.t = R_w1, t_w1
+        self.last_kf_slot = 1
+        self.last_kf_time = time
+        self.first_kf_time = self._init_time
+        self.n_kf = 2
+        self.ref_kf_inliers = n_new
+        # KF0 has no preceding interval; KF0 -> KF1 covers the init gap
+        if cfg.use_imu and self._imu_kf and self._init_time is not None:
+            self.kf_pre = [None, self._integrate(self._imu_kf, time,
+                                                 self._init_time)]
+        else:
+            self.kf_pre = [None, None]
+        self._imu_kf = []
+        self._init_bank = None
+        self.state = self.OK
+        return True
+
+    def _initialize_rig(self, bank, time):
+        """Multi-camera init: triangulate the first frame's stereo pairs
+        (and spawn from depth) directly (reference: MultiInitialization,
+        src/Tracking.cc:2339: metric scale from the rig baseline)."""
+        cfg, rig, dev = self.cfg, self.rig, self.device
+        z3 = torch.zeros(3, device=dev)
+        CF = bank["xy"].shape[0]
+        m = ms.insert_keyframe(
+            self.map, 0, torch.eye(3, device=dev), z3, z3, z3, z3, time,
+            bank["xy"], bank["desc"], bank["level"], bank["sigma2"],
+            bank["cam"], bank["valid"],
+            torch.full((CF,), -1, dtype=torch.int32, device=dev))
+        total = 0
+        if cfg.use_depth:
+            m, n_new = depth_mod.spawn_from_depth_multi(
+                m, 0, rig.kind, cfg.n_cams, rig, self._depth_cur,
+                pin_params=cfg.depth_pin or None, cap_new=cfg.depth_cap,
+                max_spawn_depth=cfg.depth_max)
+            total += int(n_new)
+        for pair in cfg.stereo_pairs:
+            m, n_new = stereo_spawn(m, 0, rig.kind, cfg.n_cams, rig, pair,
+                                    lap1=_lap(cfg, pair[0]),
+                                    lap2=_lap(cfg, pair[1]))
+            total += int(n_new)
+        if total < 50:
+            self.map = ms.allocate(cfg.max_kf, CF, cfg.max_mp, device=dev)
+            return False
+        self.map = ms.update_mp_geometry(m)
+        self.last_kf_slot = 0
+        self.last_kf_time = time
+        self.first_kf_time = time
+        self.n_kf = 1
+        self.ref_kf_inliers = total
+        self.kf_pre = [None]
+        self._imu_kf = []
+        self.state = self.OK
+        return True
+
+    def _insert_keyframe(self, bank, time, feat_mp, n_in):
+        cfg, rig = self.cfg, self.rig
+        slot = self.n_kf
+        self.map = ms.insert_keyframe(
+            self.map, slot, self.R, self.t, self.v, self.bias[:3],
+            self.bias[3:], time, bank["xy"], bank["desc"], bank["level"],
+            bank["sigma2"], bank["cam"], bank["valid"], feat_mp)
+        # depth-prior points first: measured metric depth needs no
+        # parallax (reference: Frame.cc:1916-1922)
+        if cfg.use_depth:
+            self.map, _ = depth_mod.spawn_from_depth_multi(
+                self.map, slot, rig.kind, cfg.n_cams, rig, self._depth_cur,
+                pin_params=cfg.depth_pin or None, cap_new=cfg.depth_cap,
+                max_spawn_depth=cfg.depth_max)
+        # intra-rig stereo points (metric) ...
+        for pair in cfg.stereo_pairs:
+            self.map, _ = stereo_spawn(
+                self.map, slot, rig.kind, cfg.n_cams, rig, pair,
+                cap_new=cfg.new_mp_cap, lap1=_lap(cfg, pair[0]),
+                lap2=_lap(cfg, pair[1]))
+        # ... plus temporal points per camera band against recent KFs
+        # (reference: CreateNewMapPoints, src/LocalMapping.cc:395)
+        refs = [slot - 1 - j for j in range(cfg.temporal_refs)]
+        self.map, _ = temporal_spawn_multi(
+            self.map, slot, refs, rig.kind, cfg.n_cams, rig, cfg.new_mp_cap,
+            n_refs=cfg.temporal_refs)
+        self.map = bind_landmarks_multi(
+            self.map, slot, rig.kind, cfg.n_cams, rig, float(cfg.img_w),
+            float(cfg.img_h))
+        self.map = mono.fuse_new_landmarks(self.map, slot,
+                                           cap=cfg.new_mp_cap)
+        self.map = mono.cull_landmarks(self.map, slot)
+        self.map = ms.update_mp_geometry(self.map)
+
+        # preintegration of this keyframe interval
+        if cfg.use_imu and self._imu_kf and self.last_kf_time is not None:
+            self.kf_pre.append(self._integrate(self._imu_kf, time,
+                                               self.last_kf_time))
+        else:
+            self.kf_pre.append(None)
+        self._imu_kf = []
+
+        # window BA: visual until the IMU is initialized, VI after
+        if self.imu_initialized:
+            self._vi_local_ba(slot)
+        else:
+            self.map, _ = mono.local_ba_step(self.map, slot, rig.kind, rig,
+                                             window=cfg.ba_window)
+
+        # redundant-keyframe culling with the chain merged across each
+        # culled keyframe (reference: KeyFrameCulling + MergePrevious,
+        # src/LocalMapping.cc:974, src/ImuTypes.cc:241)
+        self.map, culled = mono.cull_keyframes(
+            self.map, slot, inertial=cfg.use_imu,
+            imu_ok=bool(self.imu_initialized))
+        for ck in culled.tolist():
+            if ck >= 0 and ck + 1 < len(self.kf_pre):
+                a = self.kf_pre[ck]
+                b = self.kf_pre[ck + 1]
+                if a is not None and b is not None:
+                    self.kf_pre[ck + 1] = pre_mod.compose(a, b)
+                elif a is not None:
+                    self.kf_pre[ck + 1] = a
+                self.kf_pre[ck] = None
+
+        self.last_kf_slot = slot
+        self.last_kf_time = time
+        self.n_kf += 1
+        self.ref_kf_inliers = max(n_in, 1)
+
+        # staged IMU initialization + VIBA refinement schedule (reference:
+        # InitializeIMU at LocalMapping.cc:203-265: initial stage priors
+        # 1e2 / 1e5 (metric) or 1e10 (mono), VIBA1 at 5 s with 1.0 / 1e5,
+        # VIBA2 at 15 s with 0 / 0, each followed by FullInertialBA)
+        if cfg.use_imu:
+            tinit = (time - self.first_kf_time
+                     if self.first_kf_time is not None else 0.0)
+            if self.viba_stage == 0 and self.n_kf >= cfg.imu_init_kfs:
+                pa = 1e5 if cfg.metric_scale else 1e10
+                if self._imu_init_stage(1e2, pa, first=True):
+                    self.viba_stage = 1
+            elif self.viba_stage == 1 and tinit > cfg.viba1_time:
+                if self._imu_init_stage(1.0, 1e5, first=False):
+                    self.viba_stage = 2
+            elif self.viba_stage == 2 and tinit > cfg.viba2_time:
+                if self._imu_init_stage(0.0, 0.0, first=False):
+                    self.viba_stage = 3
+
+        self.R = self.map.kf_R[slot]
+        self.t = self.map.kf_t[slot]
+        self.v = self.map.kf_v[slot]
+
+    def _kf_pre_batch(self, K):
+        """The chain [1, K) as one batched Preintegrated + validity mask
+        (a missing entry is the identity interval, invalid)."""
+        ident = pre_mod.init_preintegrated(self.bias)
+        pres, valid = [], []
+        for k in range(1, K):
+            p = self.kf_pre[k] if k < len(self.kf_pre) else None
+            pres.append(p if p is not None else ident)
+            valid.append(p is not None)
+        pre_b = pre_mod.Preintegrated(*(torch.stack(xs)
+                                        for xs in zip(*pres)))
+        return pre_b, torch.tensor(valid, device=self.device)
+
+    def _imu_init_stage(self, prior_g, prior_a, first: bool) -> bool:
+        """One stage of the staged IMU initialization through
+        `imu_init_step` (InertialOptimization -> gravity-align ->
+        FullInertialBA; reference: LocalMapping::InitializeIMU,
+        src/LocalMapping.cc:1255, priors of the VIBA schedule at
+        :203-265)."""
+        cfg = self.cfg
+        if self.n_kf < 3:
+            return False
+        K = cfg.max_kf
+        pre_b, edge_valid = self._kf_pre_batch(K)
+        edge_valid = edge_valid & (
+            torch.arange(1, K, device=self.device) < self.n_kf)
+        if int(edge_valid.sum()) < self.n_kf - 2:
+            return False
+        m2, _, ok = imu_init_step(
+            self.map, pre_b, edge_valid, self.bias, bool(first),
+            max(prior_g, 0.0), max(prior_a, 0.0), cfg.metric_scale,
+            self.rig)
+        if not ok:
+            return False
+        self.map = m2
+        s = self.last_kf_slot
+        self.R, self.t, self.v = m2.kf_R[s], m2.kf_t[s], m2.kf_v[s]
+        self.bias = torch.cat([m2.kf_bg[s], m2.kf_ba[s]])
+        self.imu_initialized = True
+        return True
+
+    def _vi_local_ba(self, newest):
+        """VI window BA over the stored preintegration chain, the window
+        padded to `ba_window` with invalid entries (`vi_window_ba_step`);
+        visual window BA when an interval of the window is missing."""
+        cfg, rig = self.cfg, self.rig
+        W = cfg.ba_window
+        if newest < 1:
+            return
+        lo = max(newest - W + 1, 0)
+        w_ids = list(range(lo, newest + 1))
+        have_pre = all(k < len(self.kf_pre) and self.kf_pre[k] is not None
+                       for k in w_ids[1:])
+        if not have_pre:
+            self.map, _ = mono.local_ba_step(self.map, newest, rig.kind, rig,
+                                             window=W)
+            return
+        n_w = len(w_ids)
+        ident = pre_mod.init_preintegrated(self.bias)
+        pres = [self.kf_pre[k] for k in w_ids[1:]]
+        pres += [ident] * (W - 1 - len(pres))
+        dev = self.device
+        pre_b = pre_mod.Preintegrated(*(torch.stack(xs)
+                                        for xs in zip(*pres)))
+        self.map, self.bias = vi_window_ba_step(
+            self.map, torch.tensor(w_ids + [newest] * (W - n_w), device=dev),
+            torch.tensor([True] * n_w + [False] * (W - n_w), device=dev),
+            pre_b,
+            torch.tensor([True] * (n_w - 1) + [False] * (W - n_w),
+                         device=dev),
+            n_w - 1, rig.kind, rig)

@@ -30,7 +30,8 @@ scalar, which reads it back to the host (a sync per decision).
 
 Not ported yet, each raising NotImplementedError and queued in ROADMAP.md:
 the cross-map weld (`secondary_map`, `merge_kw`), host-policy loop closing
-(`loop_closer`, `maybe_close_loop`) and `run_global_ba`.
+(`loop_closer`, `maybe_close_loop`) and the sharded global BA
+(`run_global_ba(mesh=...)`).
 `frames_per_dispatch > 1` (the reference's chunking of frames into one
 dispatch for its transport) is left out and raises too.
 
@@ -71,7 +72,7 @@ from .streaming import INIT, LOST, NEED_REF, OK, TrajRing, _masked_median
 __all__ = ["VIStreamConfig", "VIStreamCarry", "StreamingVITracker",
            "init_carry"]
 
-_LATER = "not ported yet; queued in ROADMAP.md ({})"
+_LATER = mt._LATER
 
 
 class VIStreamCarry(NamedTuple):
@@ -257,13 +258,7 @@ class VIStep:
         return mt.concat_bands(feats)
 
     def band0_feats(self, bank) -> extractor.Features:
-        """Camera 0's band of the bank as `Features`."""
-        sl = slice(0, self.F)
-        zero = torch.zeros(self.F, device=bank["xy"].device)
-        return extractor.Features(
-            xy=bank["xy"][sl], response=zero, angle=zero,
-            level=bank["level"][sl], sigma2=bank["sigma2"][sl],
-            desc=bank["desc"][sl], valid=bank["valid"][sl])
+        return mt.band0_feats(bank, self.F)
 
     def min_last_of(self, c) -> int:
         if self.cfg.local_map_window is None:
@@ -777,11 +772,11 @@ class StreamingVITracker:
         keypoints are undistorted before anything uses them."""
         if secondary_map is not None or merge_kw is not None:
             raise NotImplementedError(_LATER.format(
-                "Queue 1 item 9: the cross-map weld, "
+                "Queue 1 item 6: the cross-map weld, "
                 "streaming_lc.make_merge_step"))
         if loop_closer is not None:
             raise NotImplementedError(_LATER.format(
-                "Queue 1 item 7: host-policy loop closing, "
+                "Queue 1 item 5: host-policy loop closing, "
                 "loop_closing.LoopCloser"))
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -873,11 +868,35 @@ class StreamingVITracker:
 
     def maybe_close_loop(self) -> bool:
         raise NotImplementedError(_LATER.format(
-            "Queue 1 item 7: host-policy loop closing, maybe_close_loop"))
+            "Queue 1 item 5: host-policy loop closing, maybe_close_loop"))
 
     def run_global_ba(self, mesh=None, stages=(4, 6), cg_iters=16):
-        raise NotImplementedError(_LATER.format(
-            "run_global_ba / distributed global BA"))
+        """Whole-map FullInertialBA over the streamed map (reference: the
+        background GBA thread, src/LoopClosing.cc:2351; the event form of
+        what the amortized in-stream GBA does at keyframe cadence), then
+        the live pose and velocity re-expressed through the reference
+        keyframe in the refined world. Call at event cadence, not per
+        frame. `mesh` (the sharded solve) is not ported yet.
+        Returns chi2 as a 0-d tensor."""
+        if mesh is not None:
+            raise NotImplementedError(_LATER.format(
+                "Queue 1 item 10: run_global_ba(mesh=), parallel/ on "
+                "torch.distributed"))
+        c, m = self.carry, self.map
+        m2, chi = trk.global_inertial_ba_step(
+            m, c.chain.map(lambda x: x[1:]), c.chain_valid[1:],
+            self.rig.kind, self.rig, stages=stages, cg_iters=cg_iters,
+            obs_cap=self.cfg.obs_cap)
+        ref = torch.clamp(c.last_kf_slot, min=0).to(torch.int64)
+        R_old, t_old = m.kf_R[ref], m.kf_t[ref]
+        R_new, t_new = m2.kf_R[ref], m2.kf_t[ref]
+        R_rel = R_old.T @ c.R
+        t_rel = R_old.T @ (c.p - t_old)
+        self.carry = c._replace(R=R_new @ R_rel, p=t_new + R_new @ t_rel,
+                                v=R_new @ R_old.T @ c.v)
+        self.map = m2
+        self._snap = None
+        return chi
 
     def snapshot(self) -> dict:
         """Trajectory + counters as numpy (cached until the next push)."""

@@ -935,9 +935,9 @@ def test_tracker_with_device_lc(device_lc):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(secondary_map=object()), "item 9"),
-    (dict(merge_kw=dict()), "item 9"),
-    (dict(loop_closer=object()), "item 7")])
+    (dict(secondary_map=object()), "item 6"),
+    (dict(merge_kw=dict()), "item 6"),
+    (dict(loop_closer=object()), "item 5")])
 def test_tracker_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _small_tracker(device_lc=True, **kw)

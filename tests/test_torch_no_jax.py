@@ -19,6 +19,9 @@ def test_port_imports_without_jax():
         "          'optim.sim3_refine', 'solvers.two_view',\n"
         "          'frontend.depth'):\n"
         "    assert 'openmavis_tpu_torch.' + n in names, n\n"
+        "from openmavis_tpu_torch.pipeline import multi_tracking\n"
+        "for n in ('MultiTracker', 'MultiTrackerConfig'):\n"
+        "    assert hasattr(multi_tracking, n), n\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'openmavis_tpu' or m.startswith('openmavis_tpu.'))\n"

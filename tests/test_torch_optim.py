@@ -289,3 +289,23 @@ def test_stereo_and_inertial_residuals(window):
     rt = tin.inertial_residual(*map(torch.as_tensor, st),
                                _chain_t(w).map(lambda x: x[0]))
     close(rt, rj, 1e-5, rtol=1e-4)
+
+
+def test_bundle_adjust_rejects_unsorted_rows(window):
+    """`rows_per_kf` declares the table as K contiguous keyframe blocks;
+    the reshape-sum would silently credit rows to the wrong keyframe if it
+    were not, so a CPU table that breaks the layout raises."""
+    w = window
+    _, tr = _rigs(w)
+    state, fixed = _ba_inputs(w)
+    obs = dict(w["obs"])
+    # every keyframe keeps its row count, but the rows are interleaved
+    order = np.argsort(np.tile(np.arange(w["M"]), w["K"]), kind="stable")
+    obs = {k: v[order] for k, v in obs.items()}
+    assert np.bincount(obs["kf"]).tolist() == [w["M"]] * w["K"]
+    t_obs = tba.BAObservations(**{k: torch.as_tensor(v)
+                                  for k, v in obs.items()})
+    with pytest.raises(ValueError, match="rows_per_kf"):
+        tba.bundle_adjust(tba.BAState(*map(torch.as_tensor, state)), t_obs,
+                          tr, torch.as_tensor(fixed), stages=(1, 1),
+                          rows_per_kf=w["M"])

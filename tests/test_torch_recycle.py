@@ -38,6 +38,9 @@ the LOST branch of the step (the two share one run of both trackers).
 * `weld_chain` alone against `compose(rebias(...))` written out slot by
   slot; `snapshot()["obs_dropped"]`; the `convert` round trip of a
   recycled map and carry.
+* `StreamingVITracker.run_global_ba()` from the reference's final state:
+  map integers exact, keyframe poses and the live pose 1e-3, chi2 1e-3
+  relative.
 """
 
 import dataclasses
@@ -484,3 +487,50 @@ def test_snapshot_counts_dropped_observations(runs):
             assert dropped == n_rows - int(capped.valid.sum())
     finally:
         tt.cfg, tt._snap = cfg, None
+
+
+def test_run_global_ba(runs):
+    """`run_global_ba()` from the reference's final (recycled,
+    IMU-initialized) state: the whole-map FullInertialBA, then the live
+    pose re-expressed through its reference keyframe. Map integers exact,
+    keyframe poses and the live pose 1e-3, chi2 1e-3 relative; the live
+    pose keeps its pose relative to that keyframe. `mesh=` still raises."""
+    jt = runs["jax"]
+    m_np, c_np = _state(jt)
+    assert int(c_np["viba_stage"]) >= 1
+    tt = runs["synced"]
+    tt.map = convert.map_from_numpy(m_np, device="cpu")
+    tt.carry = convert.carry_from_numpy(c_np, device="cpu")
+    tt._snap = None
+    own = jt.map, jt.carry, jt._snap
+    try:
+        chi_j = jt.run_global_ba()
+        m_j, c_j = _state(jt)
+    finally:
+        jt.map, jt.carry, jt._snap = own
+    chi_t = tt.run_global_ba()
+    assert chi_t.dim() == 0 and torch.isfinite(chi_t)
+    assert float(chi_t) == pytest.approx(float(chi_j), rel=1e-3)
+    for k in ("n_kf", "n_mp", "kf_valid", "mp_valid", "kf_obs"):
+        _assert_same(getattr(tt.map, k), m_j[k], k)
+    for k in ("kf_R", "kf_t", "kf_v"):
+        np.testing.assert_allclose(convert._np(getattr(tt.map, k)), m_j[k],
+                                   atol=1e-3, err_msg=k)
+    for k in ("R", "p", "v"):
+        np.testing.assert_allclose(convert._np(getattr(tt.carry, k)),
+                                   c_j[k], atol=1e-3, err_msg=k)
+    # the GBA moved the map, and the live pose with its keyframe
+    ref = int(c_np["last_kf_slot"])
+    assert np.abs(m_j["kf_t"] - m_np["kf_t"]).max() > 1e-4
+
+    def rel(kR, kt, R, p):
+        return kR.T @ R, kR.T @ (p - kt)
+
+    before = rel(m_np["kf_R"][ref], m_np["kf_t"][ref], c_np["R"], c_np["p"])
+    after = rel(*(convert._np(x) for x in (
+        tt.map.kf_R[ref], tt.map.kf_t[ref], tt.carry.R, tt.carry.p)))
+    np.testing.assert_allclose(after[0], before[0], atol=1e-5)
+    np.testing.assert_allclose(after[1], before[1], atol=1e-5)
+    assert tt.snapshot()["n_kf"] == m_j["n_kf"]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tt.run_global_ba(mesh=2)
