@@ -24,7 +24,8 @@ Phases (any failure raises; the exit code is then nonzero):
      features (1,000 x 1,000, direct and through `mask.T`: the mono init,
      temporal spawn, the loop closer's keyframe pair and relocalization
      all match one camera's 1,000 features against 1,000) and the map ->
-     frame search at 16,384 x 1,000. Then time, at the main-path shapes,
+     frame search at 16,384 x 1,000, and the one-camera trackers' at
+     8,192 x 1,000. Then time, at the main-path shapes,
      each wrapper
      (CUDA events), each kernel alone (a CUDA graph of 20 calls, and one
      call on a cold L2), each plain version, and
@@ -84,6 +85,32 @@ Phases (any failure raises; the exit code is then nonzero):
      `MultiTracker` with no stereo pair (IMU_MONOCULAR), 60 frames. Gates:
      two-view init by frame 20, `hamming_best2` at 1,000 x 1,000 launched
      by it (direct and through mask.T), every pose finite.
+  9. drive path 7, "mono_tracker" (MONOCULAR as `System` builds it):
+     `tracking.Tracker` on phase 5's EuRoC camera (752 x 480, radtan
+     images, `dist` given), 1,000 ORB features x 8 levels,
+     `TrackerConfig`'s defaults (64 keyframes, 8,192 landmarks), no atlas,
+     no loop closer, 100 frames with frames 60-63 black. Gates: two-view
+     init by frame 20; all but 10 of frames 0-59 tracked; no black frame
+     tracked; the untracked frames beyond the black ones at most the
+     reference package's own 38 at this configuration and a third (it
+     never relocalizes after the blackout: scripts/reference_tracker.py);
+     `relocalize_step` on every LOST frame (three direct and three
+     mask.T 1,000 x 1,000 launches); n_kf >= 2; > 100 landmarks; ATE
+     (Horn scale) <= 5% of the tracked path (`horn_scale` printed);
+ 10. drive path 8, "rgbd_tracker" (RGBD): `Tracker` with depth maps on
+     phase 6's 640 x 480 camera, 1,000 x 8, `TrackerConfig`'s defaults,
+     80 frames. Gates: init from depth on frame 0, >= 78 tracked, ATE
+     without scale <= 0.30 m, 0.8 < horn_scale < 1.25;
+ 11. drive path 9, "mono_streaming": `streaming.StreamingTracker` as
+     `examples/mono_euroc.py --streaming` builds it (the EuRoC pinhole
+     without distortion, the images rendered undistorted, 1,000 x 8,
+     64 keyframes, 16,384 landmarks), 80 frames. Gates: n_kf >= 3, more
+     than 80% of the frames from frame 3 on tracked, ATE (Horn scale)
+     <= 0.15 m.
+  Paths 7-9 also print the frame ms median / p90 / max from frame 10 on
+  and the launches per kernel and shape, and must launch
+  `projection_best2` at their map's shape and `hamming_best2` at
+  1,000 x 1,000.
 
 Prints each path's result as one JSON line, the kernel table as one JSON
 line (one record per kernel, shape and mask layout, each with its own
@@ -100,7 +127,10 @@ Run: python3 chip_smoke.py   (from the repository root, one GPU)
      python3 chip_smoke.py --stages   every path with a synchronized
      timer around every stage of the step and of the loop closer (for the
      MultiTracker paths `_integrate`, `_insert_keyframe`,
-     `_imu_init_stage`, `_vi_local_ba` and the steps they call); prints
+     `_imu_init_stage`, `_vi_local_ba` and the steps they call; for the
+     Tracker `_ext`, `track_step`, `_insert_keyframe`, `spawn_landmarks`,
+     `bind_landmarks`, `local_ba_step`, `relocalize_step`; for the
+     StreamingTracker its step's branches); prints
      each table as one JSON line. Its syncs lengthen the frames, so the
      frame times of such a run are not comparable with a plain run's
      python3 chip_smoke.py --long   instead of phases 3 and 4: the
@@ -114,8 +144,8 @@ Run: python3 chip_smoke.py   (from the repository root, one GPU)
      beside the package's own source
      python3 chip_smoke.py --paths LIST   drives only the named paths
      (comma-separated: flagship, recycle_blackout, mono_inertial_euroc,
-     rgbd_inertial, multi_tracker, multi_tracker_mono); it prints no
-     {"ok": ...} line
+     rgbd_inertial, multi_tracker, multi_tracker_mono, mono_tracker,
+     rgbd_tracker, mono_streaming); it prints no {"ok": ...} line
      python3 chip_smoke.py --out DIR   also writes each path's result
      line into DIR/<path>.json
 """
@@ -164,8 +194,28 @@ MT_BAND_FRAME = 79
 MT_REF_ATE_M = 0.380
 # path 6: the mono-inertial camera through the host-policy tracker
 N_FRAMES_MT_MONO = 60
+# paths 7-9: the one-camera visual trackers at TrackerConfig's defaults
+# (64 keyframes, 8,192 landmarks) and at examples/mono_euroc.py --streaming
+# (16,384 landmarks)
+N_FRAMES_TRACKER = 100
+TRACKER_BLACKOUT = range(60, 64)
+N_FRAMES_RGBD_TRACKER = 80
+N_FRAMES_STREAMING = 80
+TRACKER_MAX_MP = 8192
+STREAMING_MAX_MP = 16384
+# the reference package's Tracker at path 7's configuration on the CPU
+# (scripts/reference_tracker.py mono_tracker 100 SEED, seeds 0-4): with
+# seeds 1, 2 and 4 it initializes by frame 2, tracks 58-59 of the 60
+# frames before the blackout and none of the 36 after it (it stays LOST:
+# its relocalization finds no pose); with seeds 0 and 3 it never
+# initializes. So the band "all but the black frames and at most 10
+# others tracked" holds on frames 0-59, and over the whole run the
+# untracked frames beyond the black ones are held to the reference's 38
+# and a third; recovery after the blackout is printed, not gated
+TRACKER_REF_UNTRACKED = 38
 PATHS = ("flagship", "recycle_blackout", "mono_inertial_euroc",
-         "rgbd_inertial", "multi_tracker", "multi_tracker_mono")
+         "rgbd_inertial", "multi_tracker", "multi_tracker_mono",
+         "mono_tracker", "rgbd_tracker", "mono_streaming")
 
 
 def gpu_line() -> str:
@@ -509,10 +559,16 @@ def phase_kernel(torch, dev, mc):
     # the single-camera paths: 1,000 features of a 752 x 480 image
     args_mono = main_path_factors(torch, dev, m=SINGLE_FEATURES, seed=24,
                                   size=(752.0, 480.0))
+    # the one-camera trackers' slab (TrackerConfig's 8,192 landmarks) at
+    # about the live share their runs show (1,200-2,800 landmarks)
+    args_trk = main_path_factors(torch, dev, n=TRACKER_MAX_MP,
+                                 m=SINGLE_FEATURES, p_valid=0.25, seed=25,
+                                 size=(752.0, 480.0))
     pcases = [("map16384x512", list(args)),
               ("cap8192x512", list(args_cap)),
               ("long32768x512", list(args_long)),
               ("mono16384x1000", list(args_mono)),
+              ("tracker8192x1000", list(args_trk)),
               ("lc_pairs_by_projection_r40", list(main_path_factors(
                   torch, dev, radius=40.0, p_valid=0.03, seed=8))),
               ("lc_group_projection_r8", list(main_path_factors(
@@ -615,7 +671,9 @@ def phase_kernel(torch, dev, mc):
             ("proj_long", lambda: mc.projection_best2(*args_long),
              lambda: mc.projection_best2_plain(*args_long), None),
             ("proj_mono", lambda: mc.projection_best2(*args_mono),
-             lambda: mc.projection_best2_plain(*args_mono), None)):
+             lambda: mc.projection_best2_plain(*args_mono), None),
+            ("proj_trk", lambda: mc.projection_best2(*args_trk),
+             lambda: mc.projection_best2_plain(*args_trk), None)):
         runs = [cuda_time_ms(plain), cuda_time_ms(fused),
                 graph_time_ms(fused), cuda_time_ms(fused),
                 cuda_time_ms(plain)]
@@ -665,6 +723,7 @@ def phase_kernel(torch, dev, mc):
     bytes_cap, pairs_cap = proj_bytes(args_cap)
     bytes_long, pairs_long = proj_bytes(args_long)
     bytes_pmono, pairs_pmono = proj_bytes(args_mono)
+    bytes_ptrk, pairs_ptrk = proj_bytes(args_trk)
     b_mask, by_mask = _bound_ms(sum(bytes_mask.values()), pairs * 512)
     b_proj, by_proj = _bound_ms(sum(bytes_proj.values()), pairs * 512)
     b_cap, by_cap = _bound_ms(sum(bytes_cap.values()), pairs_cap * 512)
@@ -678,6 +737,10 @@ def phase_kernel(torch, dev, mc):
                                 int(omask.sum()) * 512)
     b_pmono, by_pmono = _bound_ms(sum(bytes_pmono.values()),
                                   pairs_pmono * 512)
+    b_ptrk, by_ptrk = _bound_ms(sum(bytes_ptrk.values()), pairs_ptrk * 512)
+    t.update(proj_trk_bound_ms=b_ptrk, proj_trk_bytes=bytes_ptrk,
+             proj_trk_admissible_pairs=pairs_ptrk,
+             proj_trk_live_rows=int(args_trk[4].sum()))
     t.update(mask_mono_bound_ms=b_mono, proj_mono_bound_ms=b_pmono,
              mask_mono_bytes=bytes_mono, proj_mono_bytes=bytes_pmono,
              mask_mono_admissible_pairs=int(omask.sum()),
@@ -700,8 +763,8 @@ def phase_kernel(torch, dev, mc):
              proj_long_admissible_pairs=pairs_long,
              proj_long_live_rows=int(args_long[4].sum()))
     print("kernel times at 16,384 x 512, 512 x 512, 2,048 x 2,048, "
-          "512 x 2,048, 8,192 x 512, 32,768 x 512, 1,000 x 1,000 and "
-          "16,384 x 1,000 (ms per call; "
+          "512 x 2,048, 8,192 x 512, 32,768 x 512, 1,000 x 1,000, "
+          "16,384 x 1,000 and 8,192 x 1,000 (ms per call; "
           "wrapper = cuda events around 10 back-to-back calls, median of "
           "%d; kernel_only = 20 calls in one CUDA graph, median of %d "
           "replays; cold = one call after 256 MB were written): %s"
@@ -712,7 +775,7 @@ def phase_kernel(torch, dev, mc):
                        ("mask_reloc_T", b_rel), ("proj_map", b_proj),
                        ("proj_cap", b_cap), ("proj_long", b_long),
                        ("mask_mono", b_mono), ("mask_mono_T", b_mono),
-                       ("proj_mono", b_pmono)):
+                       ("proj_mono", b_pmono), ("proj_trk", b_ptrk)):
         print("%-14s wrapper %8.2f us  kernel alone %7.2f us  cold %7.2f us"
               "  plain %8.2f us  bound %6.3f us"
               % (key, t[f"{key}_wrapper_ms"] * 1e3,
@@ -768,7 +831,11 @@ def phase_kernel(torch, dev, mc):
                b_mono, by_mono),
         record("projection_best2", "proj_mono",
                (args_mono[3].shape[0], SINGLE_FEATURES), "factors", b_pmono,
-               by_pmono)]
+               by_pmono),
+        # the one-camera trackers' map -> frame search and bind
+        record("projection_best2", "proj_trk",
+               (args_trk[3].shape[0], SINGLE_FEATURES), "factors", b_ptrk,
+               by_ptrk)]
 
 
 def mask_route_match_projection(proj_xy, pred_level, radius, d_query,
@@ -1878,6 +1945,256 @@ def phase_multi_tracker_mono(torch, dev, mc, card: str,
     return counts
 
 
+def wrap_tracker_stages(timer: StageTimer, tr) -> None:
+    """The timer around the one-camera trackers' stages: `Tracker`'s
+    extraction, init, keyframe insertion and the steps they call, or the
+    `StreamingTracker` step's branches."""
+    from openmavis_tpu_torch.optim import pose_opt
+    from openmavis_tpu_torch.pipeline import tracking as trk
+    if hasattr(tr, "_step"):
+        for name in ("step", "branch_need_ref", "branch_init", "do_init",
+                     "branch_track", "kf_insert"):
+            timer.wrap(tr._step, name)
+    else:
+        for name in ("process_frame", "_ext", "_try_initialize",
+                     "_initialize_rgbd", "_insert_keyframe",
+                     "_recycle_slots", "_record"):
+            timer.wrap(tr, name)
+    timer.wrap(pose_opt, "pose_optimization")
+    for name in ("track_step", "spawn_landmarks", "bind_landmarks",
+                 "fuse_new_landmarks", "cull_keyframes", "local_ba_step",
+                 "relocalize_step"):
+        timer.wrap(trk, name)
+
+
+def tracker_setup(path: str, n: int):
+    """(rig_np, uint8 frames [T, h, w], depth maps [T, h, w] or None,
+    t_wb, radtan or None) of a one-camera visual path: path 3's EuRoC
+    camera with radtan, frames TRACKER_BLACKOUT black (`mono_tracker`);
+    path 4's RGB-D camera with depth maps (`rgbd_tracker`); the EuRoC
+    pinhole without distortion, the images rendered undistorted
+    (`mono_streaming`, which takes no `dist`)."""
+    from openmavis_tpu_torch import scene
+    if path == "rgbd_tracker":
+        w, h, pin, dist = (scene.RGBD_W, scene.RGBD_H, scene.RGBD_PINHOLE,
+                           None)
+    else:
+        w, h, pin = scene.EUROC_W, scene.EUROC_H, scene.EUROC_PINHOLE
+        dist = scene.EUROC_RADTAN if path == "mono_tracker" else None
+    rig_np, frames, _, t_wb, _, depths = scene.make_single_camera_sequence(
+        n, 1.25 * (n - 1) / (N_FRAMES - 1), w, h, pin, dist=dist,
+        depth=path == "rgbd_tracker")
+    frames = frames[:, 0]
+    if path == "mono_tracker":
+        frames[list(TRACKER_BLACKOUT)] = 0
+    return (rig_np, frames, None if depths is None else depths[:, 0], t_wb,
+            dist)
+
+
+def make_visual_tracker(torch, dev, path: str, rig_np, w: int, h: int,
+                        dist, n: int):
+    """Path 7 / 8: `tracking.Tracker` as `System` builds it for MONOCULAR
+    and RGBD (TrackerConfig's defaults: 64 keyframes, 8,192 landmarks; no
+    atlas, no loop closer), 1,000 ORB features x 8 levels. Path 9:
+    `streaming.StreamingTracker` as `examples/mono_euroc.py --streaming`
+    builds it (64 keyframes, 16,384 landmarks, a ring of >= n)."""
+    from openmavis_tpu_torch import convert
+    from openmavis_tpu_torch.frontend import extractor
+    from openmavis_tpu_torch.pipeline import streaming, tracking
+    rig = convert.rig_from_numpy(rig_np, device=dev)
+    orb = extractor.OrbConfig(n_features=SINGLE_FEATURES, n_levels=8)
+    if path == "mono_streaming":
+        cfg = streaming.StreamConfig(img_w=w, img_h=h, orb=orb, max_kf=64,
+                                     max_mp=STREAMING_MAX_MP,
+                                     traj_cap=max(n, 64))
+        return streaming.StreamingTracker(rig, cfg, seed=0, device=dev), cfg
+    cfg = tracking.TrackerConfig(img_w=w, img_h=h, orb=orb)
+    return tracking.Tracker(
+        rig, cfg, seed=0, device=dev,
+        dist=None if dist is None else np.asarray(dist, np.float32)[None]), \
+        cfg
+
+
+def phase_visual_tracker(torch, dev, mc, card: str, path: str,
+                         stages: bool = False):
+    """Paths 7-9, the one-camera visual trackers, driven frame by frame
+    with the launch counts set to 0 just before the run and read just
+    after (and per frame). Gates from the reference package's own tests
+    (`test_tracking_e2e.py`, `test_rgbd.py`, `test_streaming.py`), or the
+    reference's own result where it misses one at the path's
+    configuration (TRACKER_REF_UNTRACKED)."""
+    from openmavis_tpu_torch import scene
+    from openmavis_tpu_torch.pipeline.streaming import LOST, OK
+    from openmavis_tpu_torch.solvers import two_view
+
+    n = {"mono_tracker": N_FRAMES_TRACKER,
+         "rgbd_tracker": N_FRAMES_RGBD_TRACKER,
+         "mono_streaming": N_FRAMES_STREAMING}[path]
+    f = SINGLE_FEATURES
+    t0 = time.perf_counter()
+    rig_np, frames, depths, t_wb, dist = tracker_setup(path, n)
+    h, w = frames.shape[1:]
+    print("%s scene (%d frames, %d x %d%s) rendered in %.1f s"
+          % (path, n, w, h, ", depth maps" if depths is not None else "",
+             time.perf_counter() - t0))
+    tr, cfg = make_visual_tracker(torch, dev, path, rig_np, w, h, dist, n)
+    streaming = path == "mono_streaming"
+    map_n = cfg.max_mp
+    probe = CallProbe(two_view, "reconstruct", lambda r: dict(
+        success=bool(r.success), model="H" if bool(r.homography) else "E",
+        points=int(r.is_good.sum())))
+    timer = StageTimer(torch)
+    if stages:
+        wrap_tracker_stages(timer, tr)
+
+    def launches():
+        return (mc.launch_count("hamming_best2", f, f, "rows"),
+                mc.launch_count("hamming_best2", f, f, "T"),
+                mc.launch_count("projection_best2", map_n, f, "factors"))
+
+    frame_ms, oks, per_frame = [], [], []
+    torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    try:
+        for i in range(n):
+            probe.frame = i
+            before = launches()
+            lost_in = (int(tr.carry.mode) == LOST if streaming
+                       else tr.state == tr.LOST)
+            t1 = time.perf_counter()
+            if streaming:
+                tr.push(frames[i], i / scene.FPS_IN)
+            else:
+                ok = tr.process_frame(
+                    frames[i], i / scene.FPS_IN,
+                    depth=None if depths is None else depths[i])
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+            if streaming:
+                ok = int(tr.carry.mode) == OK
+            oks.append(bool(ok))
+            d = [b - a for a, b in zip(before, launches())]
+            per_frame.append(dict(
+                frame=i, ok=bool(ok), began_lost=lost_in, n_kf=tr.n_kf,
+                hamming_rows=d[0], hamming_T=d[1], projection=d[2],
+                **({"events": list(tr.step_events)} if streaming else {})))
+    finally:
+        timer.restore()
+        probe.restore()
+    counts = dict(mc.launches_by_shape)
+    t_est, R_est, p_est = tr.get_trajectory()
+    res = _ate(t_est, p_est, oks, t_wb)
+    ok = np.asarray(oks)
+    tracked_idx = np.flatnonzero(ok)
+    steps = np.linalg.norm(np.diff(t_wb[tracked_idx], axis=0), axis=1)
+    steady = np.asarray(frame_ms[10:])
+    m = tr.map
+    init = next((c for c in probe.calls if c["success"]), None)
+    out = {
+        "path": path, "frames": n, "frames_tracked": int(ok.sum()),
+        "init_frame": int(tracked_idx[0]) if ok.any() else None,
+        "init": init, "two_view_attempts": len(probe.calls),
+        "n_keyframes": int(tr.n_kf), "n_landmarks": int(m.n_mp),
+        "ate_rmse_m": float(res["rmse"]),
+        "ate_rmse_noscale_m": float(res["rmse_noscale"]),
+        "horn_scale": float(res["scale"]),
+        "tracked_path_length_m": float(steps.sum()),
+        "frame_ms_median": float(np.median(steady)),
+        "frame_ms_p90": float(np.percentile(steady, 90)),
+        "frame_ms_max": float(steady.max()),
+        "first_frames_ms": frame_ms[:10],
+        "map_finite": bool(torch.isfinite(m.kf_R).all()
+                           & torch.isfinite(m.kf_t).all()
+                           & torch.isfinite(m.mp_pos).all()),
+        "trajectory_finite": bool(np.isfinite(p_est).all()
+                                  and np.isfinite(R_est).all()),
+        **launch_fields(counts),
+        "per_frame": per_frame,
+        "config": {k: getattr(cfg, k) for k in ("img_w", "img_h", "max_kf",
+                                                "max_mp")},
+        "stage_timers": stages, "card": card,
+    }
+    checks = [
+        (counts.get(("projection_best2", map_n, f, "factors"), 0)
+         >= out["frames_tracked"] - 2,
+         "projection_best2 at %dx%d launched on every tracked frame"
+         % (map_n, f)),
+        (counts.get(("hamming_best2", f, f, "rows"), 0) >= 1
+         and counts.get(("hamming_best2", f, f, "T"), 0) >= 1,
+         "hamming_best2 at %dx%d launched (direct and mask.T)" % (f, f)),
+        (out["trajectory_finite"], "finite trajectory"),
+        (out["map_finite"], "finite map")]
+    if path == "mono_tracker":
+        black = list(TRACKER_BLACKOUT)
+        pre = ok[:black[0]]
+        lost = [r for r in per_frame if r["began_lost"]]
+        back = next((i for i in range(black[-1] + 1, n) if ok[i]), None)
+        out.update(black=black, lost_frames=[r["frame"] for r in lost],
+                   first_tracked_after_blackout=back,
+                   reference_untracked_beyond_black=TRACKER_REF_UNTRACKED)
+        untracked_other = int((~ok).sum()) - len(black)
+        checks += [
+            (init is not None and out["init_frame"] is not None
+             and out["init_frame"] <= 20, "two-view init by frame 20"),
+            (int((~pre).sum()) <= 10,
+             "frames before the blackout all tracked but at most 10"),
+            (not ok[black].any(), "no black frame tracked"),
+            (untracked_other <= TRACKER_REF_UNTRACKED * 4 / 3,
+             "untracked frames beyond the black ones <= %.0f (the "
+             "reference's %d and a third)"
+             % (TRACKER_REF_UNTRACKED * 4 / 3, TRACKER_REF_UNTRACKED)),
+            (len(lost) >= len(black) - 1
+             and all(r["hamming_rows"] >= 3 and r["hamming_T"] >= 3
+                     for r in lost),
+             "relocalize_step on every LOST frame: hamming_best2 at "
+             "%dx%d 3 times directly and 3 times through mask.T" % (f, f)),
+            (out["n_keyframes"] >= 2, "n_kf >= 2"),
+            (out["n_landmarks"] > 100, "more than 100 landmarks"),
+            (out["ate_rmse_m"] <= 0.05 * out["tracked_path_length_m"],
+             "ATE (Horn scale) <= 5% of the tracked path's length")]
+        print("mono_tracker: init on frame %s (%s); %d of %d tracked (%d "
+              "black); LOST frames %s; first tracked after the blackout %s "
+              "(the reference package: none of the 36); horn_scale %.4f "
+              "(not gated), ATE %.4f m of a %.2f m path"
+              % (out["init_frame"], init, out["frames_tracked"], n,
+                 len(black), out["lost_frames"], back, out["horn_scale"],
+                 out["ate_rmse_m"], out["tracked_path_length_m"]))
+    elif path == "rgbd_tracker":
+        checks += [
+            (bool(ok[0]) and per_frame[0]["n_kf"] == 1,
+             "init from depth on frame 0"),
+            (out["frames_tracked"] >= n - 2, "frames_tracked >= %d" % (n - 2)),
+            (out["ate_rmse_noscale_m"] <= 0.30,
+             "ATE without scale <= 0.30 m"),
+            (0.8 < out["horn_scale"] < 1.25, "0.8 < horn_scale < 1.25")]
+        print("rgbd_tracker: %d of %d tracked, %d keyframes, %d landmarks, "
+              "ATE without scale %.4f m, horn_scale %.5f"
+              % (out["frames_tracked"], n, out["n_keyframes"],
+                 out["n_landmarks"], out["ate_rmse_noscale_m"],
+                 out["horn_scale"]))
+    else:
+        share = float(ok[3:].mean())
+        out["tracked_share_from_3"] = share
+        checks += [
+            (out["n_keyframes"] >= 3, "n_kf >= 3"),
+            (share > 0.8, "more than 80% of the frames from frame 3 on "
+             "tracked"),
+            (out["ate_rmse_m"] <= 0.15, "ATE (Horn scale) <= 0.15 m")]
+        print("mono_streaming: init on frame %s (%s); %d of %d tracked, "
+              "%d keyframes, ATE (Horn scale) %.4f m, horn_scale %.4f"
+              % (out["init_frame"], init, out["frames_tracked"], n,
+                 out["n_keyframes"], out["ate_rmse_m"], out["horn_scale"]))
+    print("%s: frame ms median %.1f / p90 %.1f / max %.1f; launches %s"
+          % (path, out["frame_ms_median"], out["frame_ms_p90"],
+             out["frame_ms_max"], out["matcher_cuda_launches_by_shape"]))
+    emit(out)
+    if stages:
+        print(json.dumps({"stages": timer.table(), "path": path,
+                          "card": card, "frames": n}))
+    gate(path + " path", checks)
+    return counts
+
+
 def phase_long(torch, dev, mc, card: str, out_dir: str) -> dict:
     """The reference package's long-run configuration on the port. No
     gates: a measurement. Progress goes to `out_dir`/long_progress.jsonl
@@ -1988,6 +2305,10 @@ def main() -> int:
         if "multi_tracker_mono" in chosen:
             paths["multi_tracker_mono"] = phase_multi_tracker_mono(
                 torch, dev, mc, card, stages=stages)
+        for path in PATHS[6:]:
+            if path in chosen:
+                paths[path] = phase_visual_tracker(torch, dev, mc, card,
+                                                   path, stages=stages)
     for k in kernels:
         n, m = map(int, k["shape"].split("x"))
         key = (k["name"], n, m, k["mask_layout"])

@@ -19,7 +19,9 @@ solvers    RANSAC two-view (E/H), PnP and Sim3 solvers.
 optim      Levenberg-Marquardt, Schur-complement BA, inertial factors.
 slam_map   Fixed-capacity map slabs, LSH bag-of-words signatures.
 pipeline   The streaming VI tracker (multi-camera, mono, RGB-D) and its
-           device loop closer.
+           device loop closer; the host-policy rig tracker MultiTracker;
+           the one-camera visual trackers tracking.Tracker (MONOCULAR,
+           RGB-D) and streaming.StreamingTracker.
 io         Synthetic scenes and trajectory evaluation (numpy).
 """
 

@@ -2,8 +2,9 @@
 
 The JAX side is given as dicts of numpy arrays keyed by field name (for a
 NamedTuple `x`: `{k: np.asarray(v) for k, v in x._asdict().items()}`;
-nested NamedTuples as nested dicts; the host-policy `MultiTracker`'s
-attributes as `multi_tracker_state_to_numpy` lays them out). `*_from_numpy` builds the port's
+nested NamedTuples as nested dicts; the host-policy trackers'
+attributes as `multi_tracker_state_to_numpy` and `tracker_state_to_numpy`
+lay them out). `*_from_numpy` builds the port's
 tensors on a given device (the current CUDA device when none is given)
 and `*_to_numpy` goes back. Every field takes
 the dtype the port allocates it with: int32 indices, int8 descriptor
@@ -18,9 +19,12 @@ import torch
 from . import resolve_device
 from .imu import preintegration as pre_mod
 from .optim.reprojection import RigParams
+from .frontend import extractor
 from .pipeline import multi_tracking as mt
+from .pipeline import streaming as stm
 from .pipeline import streaming_lc as slc
 from .pipeline import streaming_vi as svi
+from .pipeline import tracking as trk
 from .pipeline.streaming import TrajRing
 from .slam_map import map_state as ms
 
@@ -108,14 +112,25 @@ def map_to_numpy(m: ms.MapState) -> dict:
     return {k: _np(v) for k, v in m._asdict().items()}
 
 
-def carry_from_numpy(d: dict, device=None) -> svi.VIStreamCarry:
-    """JAX VIStreamCarry dict -> port carry. The PRNG key [2] uint32
-    seeds the port's torch.Generator as (key[0] << 32) | key[1] (so
-    PRNGKey(s) seeds s); the two streams differ by construction."""
-    device = resolve_device(device)
-    key = np.asarray(d["key"]).astype(np.uint64)
-    gen = torch.Generator(device=device)
+def _seed_from_key(gen: torch.Generator, key) -> torch.Generator:
+    """Seed `gen` from a JAX PRNG key [2] uint32 as (key[0] << 32) |
+    key[1] (so PRNGKey(s) seeds s); the two streams differ by
+    construction."""
+    key = np.asarray(key).astype(np.uint64)
     gen.manual_seed(int((key[0] << np.uint64(32)) | key[1]))
+    return gen
+
+
+def _key_of(gen: torch.Generator) -> np.ndarray:
+    seed = gen.initial_seed()
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+def carry_from_numpy(d: dict, device=None) -> svi.VIStreamCarry:
+    """JAX VIStreamCarry dict -> port carry; the PRNG key seeds the port's
+    torch.Generator (`_seed_from_key`)."""
+    device = resolve_device(device)
+    gen = _seed_from_key(torch.Generator(device=device), d["key"])
     f = _fields_from(d, _CARRY_SCALARS, device)
     return svi.VIStreamCarry(
         gen=gen, pre_acc=pre_from_numpy(d["pre_acc"], device),
@@ -127,8 +142,7 @@ def carry_from_numpy(d: dict, device=None) -> svi.VIStreamCarry:
 
 def carry_to_numpy(c: svi.VIStreamCarry) -> dict:
     out = {k: _np(getattr(c, k)) for k in _CARRY_SCALARS}
-    seed = c.gen.initial_seed()
-    out["key"] = np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    out["key"] = _key_of(c.gen)
     out["pre_acc"] = pre_to_numpy(c.pre_acc)
     out["chain"] = pre_to_numpy(c.chain)
     out["ref_bank"] = {k: _np(v) for k, v in c.ref_bank.items()}
@@ -175,8 +189,7 @@ def multi_tracker_state_to_numpy(tr: mt.MultiTracker) -> dict:
                        for (tm, mid, ref, R, t) in tr.trajectory]
     d["_init_bank"] = (None if tr._init_bank is None else
                        {k: _np(v) for k, v in tr._init_bank.items()})
-    seed = tr.gen.initial_seed()
-    d["key"] = np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    d["key"] = _key_of(tr.gen)
     return d
 
 
@@ -201,5 +214,85 @@ def multi_tracker_state_from_numpy(d: dict, tr: mt.MultiTracker) -> None:
     tr._init_bank = (None if d["_init_bank"] is None else
                      _fields_from(d["_init_bank"], _BANK_DTYPES, dev))
     if "key" in d:
-        key = np.asarray(d["key"]).astype(np.uint64)
-        tr.gen.manual_seed(int((key[0] << np.uint64(32)) | key[1]))
+        _seed_from_key(tr.gen, d["key"])
+
+
+# the streaming one-camera tracker's carry
+_STREAM_SCALARS = dict(
+    R=torch.float32, t=torch.float32, vel_R=torch.float32,
+    vel_t=torch.float32, mode=torch.int32, last_kf_slot=torch.int32,
+    ref_kf_inliers=torch.int32, lost_frames=torch.int32,
+    ref_time=torch.float32)
+_FEAT_DTYPES = dict(xy=torch.float32, response=torch.float32,
+                    angle=torch.float32, level=torch.int32,
+                    sigma2=torch.float32, desc=torch.int8, valid=torch.bool)
+
+
+def features_from_numpy(d: dict, device=None) -> extractor.Features:
+    return extractor.Features(**_fields_from(d, _FEAT_DTYPES, device))
+
+
+def features_to_numpy(f: extractor.Features) -> dict:
+    return {k: _np(v) for k, v in f._asdict().items()}
+
+
+def stream_carry_from_numpy(d: dict, device=None) -> stm.StreamCarry:
+    """JAX `streaming.StreamCarry` dict -> port carry; the PRNG key seeds
+    the port's torch.Generator (`_seed_from_key`)."""
+    device = resolve_device(device)
+    return stm.StreamCarry(
+        gen=_seed_from_key(torch.Generator(device=device), d["key"]),
+        ref_feats=features_from_numpy(d["ref_feats"], device),
+        traj=TrajRing(**_fields_from(d["traj"], _TRAJ_DTYPES, device)),
+        **_fields_from(d, _STREAM_SCALARS, device))
+
+
+def stream_carry_to_numpy(c: stm.StreamCarry) -> dict:
+    out = {k: _np(getattr(c, k)) for k in _STREAM_SCALARS}
+    out["key"] = _key_of(c.gen)
+    out["ref_feats"] = features_to_numpy(c.ref_feats)
+    out["traj"] = {k: _np(v) for k, v in c.traj._asdict().items()}
+    return out
+
+
+# Tracker attributes carried as host values, and those on the device
+_TR_HOST = ("state", "n_kf", "last_kf_slot", "ref_kf_inliers",
+            "lost_frames", "map_id", "_init_time")
+_TR_TENSORS = ("R", "t", "R_prev", "t_prev", "vel_R", "vel_t")
+
+
+def tracker_state_to_numpy(tr: trk.Tracker) -> dict:
+    """A port `Tracker`'s state as host values: the map as a numpy dict,
+    the pose, the previous pose and the motion model as numpy arrays, the
+    counters as Python values, the init reference frame's features
+    (`_init_feats`, a numpy dict or None), the trajectory list and `key`,
+    the generator's seed as a [2] uint32 PRNG key."""
+    d = {k: getattr(tr, k) for k in _TR_HOST}
+    d.update({k: _np(getattr(tr, k)) for k in _TR_TENSORS})
+    d["map"] = map_to_numpy(tr.map)
+    d["_init_feats"] = (None if tr._init_feats is None
+                        else features_to_numpy(tr._init_feats))
+    d["trajectory"] = [(tm, mid, ref, np.array(R), np.array(t))
+                       for (tm, mid, ref, R, t) in tr.trajectory]
+    d["key"] = _key_of(tr.gen)
+    return d
+
+
+def tracker_state_from_numpy(d: dict, tr: trk.Tracker) -> None:
+    """Set the state `d` (laid out as `tracker_state_to_numpy` does; from
+    the reference package: its `Tracker`'s attributes of the same names as
+    numpy) on the port tracker `tr`, on `tr.device`. The PRNG key, where
+    given, seeds `tr.gen`."""
+    dev = tr.device
+    for k in _TR_HOST:
+        setattr(tr, k, d[k])
+    for k in _TR_TENSORS:
+        setattr(tr, k, _t(d[k], torch.float32, dev))
+    tr.map = map_from_numpy(d["map"], dev)
+    tr._init_feats = (None if d["_init_feats"] is None
+                      else features_from_numpy(d["_init_feats"], dev))
+    tr.trajectory = [(float(tm), int(mid), int(ref),
+                      np.array(R, np.float32), np.array(t, np.float32))
+                     for (tm, mid, ref, R, t) in d["trajectory"]]
+    if "key" in d:
+        _seed_from_key(tr.gen, d["key"])

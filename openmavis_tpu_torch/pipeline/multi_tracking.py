@@ -1,6 +1,6 @@
 """Multi-camera visual-inertial tracking: the per-frame and keyframe
 steps (port of `concat_bands`, `frame_step_multi`, `_match_bank`,
-`_feat_mp_from`, `_compact_matches`, `_local_map_compact`,
+`_compact_matches`, `_local_map_compact`,
 `track_step_multi`, `track_step_multi_vi`, `_lap`, `stereo_spawn`,
 `_spawn_pair_band`, `temporal_spawn_multi`, `bind_landmarks_multi`,
 `vi_window_ba_step` and `imu_init_step` of
@@ -34,9 +34,7 @@ from ..slam_map import map_state as ms
 from ..solvers import two_view
 from . import tracking as mono
 
-# what a part of the reference package that the port leaves for a later
-# slice raises with
-_LATER = "not ported yet; queued in ROADMAP.md ({})"
+_LATER = mono._LATER
 
 
 def concat_bands(feats: extractor.Features) -> dict:
@@ -105,16 +103,6 @@ def _match_bank(m: ms.MapState, bank, R_pred, t_pred, rig_kind: int,
     return idx, idx >= 0
 
 
-def _feat_mp_from(idx, keep, CF: int, M: int):
-    """Per-feature landmark id (largest landmark id wins a collision)."""
-    dev = idx.device
-    return scatter_max(
-        torch.full((CF,), -1, dtype=torch.int32, device=dev),
-        torch.where(keep, idx, CF - 1),
-        torch.where(keep, torch.arange(M, dtype=torch.int32, device=dev),
-                    -1))
-
-
 def _compact_matches(matched, cap: int):
     """Matched-landmark rows compacted to `cap` (the matches are injective
     into the C*F bank). Returns (rows [cap], taken [cap] bool)."""
@@ -169,7 +157,7 @@ def _track_matches(m: ms.MapState, bank, R_pred, t_pred, rig_kind: int,
         bank["sigma2"][safe][rows], taken)
     inlier = scatter_max(torch.zeros_like(matched), rows, inlier_c & taken)
     vis, keep = matched, matched & inlier
-    feat_mp = _feat_mp_from(idx, keep, CF, matched.shape[0])
+    feat_mp = mono._feat_mp_from(idx, keep, CF, matched.shape[0])
     if compact:
         # back to slab ids
         feat_mp = torch.where(
@@ -850,26 +838,12 @@ class MultiTracker:
         the whole trajectory (reference: mlRelativeFramePoses replayed
         against the final keyframe poses, src/System.cc:717-1090)."""
         ref = max(self.last_kf_slot, 0)
-        # one read: the keyframe's pose and the frame's
-        x = torch.cat([self.map.kf_R[ref].reshape(9), self.map.kf_t[ref],
-                       self.R.reshape(9), self.t]).cpu().numpy()
-        R_ref, t_ref, R, t = x[:9].reshape(3, 3), x[9:12], \
-            x[12:21].reshape(3, 3), x[21:]
-        self.trajectory.append((time, self.map_id, ref, R_ref.T @ R,
-                                R_ref.T @ (t - t_ref)))
+        self.trajectory.append((time, self.map_id, ref) + mono.relative_pose(
+            self.map, ref, self.R, self.t))
 
     def get_trajectory(self):
         """(times, R [T,3,3], t [T,3]) against the final map."""
-        kf_R = self.map.kf_R.cpu().numpy()
-        kf_t = self.map.kf_t.cpu().numpy()
-        times, Rs, ts = [], [], []
-        for (tm, _, ref, R_rel, t_rel) in self.trajectory:
-            times.append(tm)
-            Rs.append(kf_R[ref] @ R_rel)
-            ts.append(kf_t[ref] + kf_R[ref] @ t_rel)
-        return (np.asarray(times),
-                np.stack(Rs) if Rs else np.zeros((0, 3, 3)),
-                np.stack(ts) if ts else np.zeros((0, 3)))
+        return mono.replay_trajectory(self.trajectory, self.map)
 
     def _recycle_slots(self):
         """Compact the keyframe and landmark slabs when full, welding the

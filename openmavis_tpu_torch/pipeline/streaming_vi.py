@@ -67,7 +67,8 @@ from ..solvers import two_view
 from . import multi_tracking as mt
 from . import streaming_lc
 from . import tracking as trk
-from .streaming import INIT, LOST, NEED_REF, OK, TrajRing, _masked_median
+from .streaming import (INIT, LOST, NEED_REF, OK, TrajRing, _masked_median,
+                        fetch, ring_append, ring_replay)
 
 __all__ = ["VIStreamConfig", "VIStreamCarry", "StreamingVITracker",
            "init_carry"]
@@ -200,16 +201,8 @@ def init_carry(cfg: VIStreamConfig, seed: int = 0,
 
 def _record(m: ms.MapState, c: VIStreamCarry, time, ok) -> VIStreamCarry:
     """Append the current pose, relative to its reference keyframe."""
-    ref = torch.clamp(c.last_kf_slot, min=0)
-    R_ref, t_ref = m.kf_R[ref], m.kf_t[ref]
-    tr = c.traj
-    i = torch.clamp(tr.idx, max=tr.time.shape[0] - 1)
-    tr = tr._replace(
-        time=set_rows(tr.time, i, time), ref=set_rows(tr.ref, i, ref),
-        R_rel=set_rows(tr.R_rel, i, R_ref.T @ c.R),
-        t_rel=set_rows(tr.t_rel, i, R_ref.T @ (c.p - t_ref)),
-        ok=set_rows(tr.ok, i, ok), idx=tr.idx + 1)
-    return c._replace(traj=tr)
+    return c._replace(traj=ring_append(m, c.traj, c.last_kf_slot, c.R, c.p,
+                                       time, ok))
 
 
 def _bias(c: VIStreamCarry) -> torch.Tensor:
@@ -899,7 +892,8 @@ class StreamingVITracker:
         return chi
 
     def snapshot(self) -> dict:
-        """Trajectory + counters as numpy (cached until the next push)."""
+        """Trajectory + counters as numpy, in one transfer (cached until
+        the next push)."""
         if self._snap is not None:
             return self._snap
         tr, m, c = self.carry.traj, self.map, self.carry
@@ -921,22 +915,11 @@ class StreamingVITracker:
                           gba_left=self.lc_carry.gba_left,
                           lc_max_tilt=self.lc_carry.max_tilt,
                           lc_dbg=self.lc_carry.dbg)
-        self._snap = {k: v.detach().cpu().numpy() for k, v in fields.items()}
+        self._snap = fetch(fields)
         return self._snap
 
     def get_trajectory(self):
-        s = self.snapshot()
-        n = int(min(s["idx"], s["time"].shape[0]))
-        kf_R, kf_t = s["kf_R"], s["kf_t"]
-        times, Rs, ts = [], [], []
-        for i in range(n):
-            ref = s["ref"][i]
-            times.append(s["time"][i])
-            Rs.append(kf_R[ref] @ s["R_rel"][i])
-            ts.append(kf_t[ref] + kf_R[ref] @ s["t_rel"][i])
-        return (np.asarray(times),
-                np.stack(Rs) if Rs else np.zeros((0, 3, 3)),
-                np.stack(ts) if ts else np.zeros((0, 3)))
+        return ring_replay(self.snapshot())
 
     @property
     def n_kf(self):

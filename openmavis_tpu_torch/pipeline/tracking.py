@@ -1,10 +1,20 @@
-"""Map-side steps shared by the trackers (port of `project_landmarks`,
-`descriptor_place_scores`, `cull_landmarks`, `fuse_new_landmarks`,
-`cull_keyframes`, `relocalize_step`, `local_ba_step`,
-`full_map_observations`, `_writeback_gba`, `global_ba_step`,
-`global_inertial_ba_step` and `recycle_map_slots` of
-`openmavis_tpu/pipeline/tracking.py`; reference: src/Tracking.cc,
-src/LocalMapping.cc, src/LoopClosing.cc:2351).
+"""Tracking: the one-camera tracker and the map-side steps the trackers
+share (port of `openmavis_tpu/pipeline/tracking.py`; reference:
+src/Tracking.cc, src/LocalMapping.cc, src/LoopClosing.cc:2351).
+
+* the per-frame steps: `project_landmarks`, `track_step` (projection
+  search against the whole map, pose optimization) and `frame_step`
+  (extraction, optional radtan undistortion and `track_step` as one call);
+* the mapper steps: `spawn_landmarks` / `_spawn_pair` (triangulation
+  against the four most recent keyframes), `bind_landmarks`,
+  `fuse_new_landmarks`, `cull_landmarks`, `cull_keyframes`,
+  `local_ba_step`; relocalization (`relocalize_step`,
+  `descriptor_place_scores`); the whole-map BA steps
+  (`full_map_observations`, `_writeback_gba`, `global_ba_step`,
+  `global_inertial_ba_step`) and `recycle_map_slots`;
+* the host-policy one-camera tracker `Tracker` with `TrackerConfig`, which
+  `System` builds for MONOCULAR and RGBD (reference: Tracking::Track,
+  src/Tracking.cc:1781-2230).
 
 Keyframe slots are Python ints here; the reference package keeps them as
 traced scalars.
@@ -12,17 +22,27 @@ traced scalars.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Optional
+
 import numpy as np
 import torch
 
+from .. import resolve_device
+from ..frontend import depth as depth_mod
 from ..frontend import extractor, matcher
-from ..geometry import cameras
+from ..geometry import cameras, triangulation
 from ..imu import preintegration as pre_mod
-from ..optim import ba, global_ba
+from ..optim import ba, global_ba, pose_opt
 from ..optim.reprojection import RigParams
 from ..ops import compact_indices, last_occurrence, scatter_max, set_rows
 from ..slam_map import map_state as ms
 from ..solvers import pnp as pnp_mod
+from ..solvers import two_view
+
+# what a part of the reference package that the port leaves for a later
+# slice raises with
+_LATER = "not ported yet; queued in ROADMAP.md ({})"
 
 
 def project_landmarks(m: ms.MapState, R, t, rig_kind: int, rig_params,
@@ -46,6 +66,165 @@ def project_landmarks(m: ms.MapState, R, t, rig_kind: int, rig_params,
     vis = m.mp_valid & depth_ok & in_img & dist_ok & angle_ok
     lvl = ms.predict_scale_level(dist, m.mp_dmax)
     return uv, lvl, vis, dist
+
+
+def frame_step(m: ms.MapState, img, R_pred, t_pred, rig_kind: int,
+               rig: RigParams, orb_cfg, img_w: float, img_h: float, radius,
+               min_last_kf: int = -1, dist=None):
+    """The fused per-frame step: ORB extraction (with radtan `dist` [4],
+    undistortion) and `track_step` as one call.
+    Returns track_step's outputs + (feats,)."""
+    feats = extractor.extract(img, orb_cfg)
+    if dist is not None:
+        feats = extractor.undistort_features(feats, rig.params[0], dist)
+    return track_step(m, feats, R_pred, t_pred, rig_kind, rig, img_w, img_h,
+                      radius, min_last_kf) + (feats,)
+
+
+def track_step(m: ms.MapState, feats: extractor.Features, R_pred, t_pred,
+               rig_kind: int, rig: RigParams, img_w: float, img_h: float,
+               radius, min_last_kf: int = -1):
+    """Project-match-optimize against the whole map from a predicted pose:
+    TrackWithMotionModel's projection search and PoseOptimization with
+    TrackLocalMap's second pass (reference: Tracking.cc:2799-3001).
+    `min_last_kf` >= 0 keeps only landmarks seen since that keyframe.
+    Returns (R, t, feat_mp [F] landmark per feature or -1, n_inliers,
+    vis [M], keep [M])."""
+    uv_proj, lvl, vis, _ = project_landmarks(
+        m, R_pred, t_pred, rig_kind, rig.params[0], rig.R_cb[0],
+        rig.t_cb[0], img_w, img_h)
+    vis = vis & (m.mp_last_kf >= min_last_kf)
+    idx, hdist = matcher.match_projection(
+        uv_proj, lvl, radius, m.mp_desc, vis, feats.xy, feats.level,
+        feats.desc, feats.valid, max_dist=matcher.TH_HIGH, ratio=0.9)
+    F = feats.xy.shape[0]
+    M = idx.shape[0]
+    idx = matcher.dedup_targets(idx, hdist, F)     # one landmark a feature
+    matched = idx >= 0
+    safe = torch.where(matched, idx, 0).to(torch.int64)
+    R, t, inlier, n_in = pose_opt.pose_optimization(
+        R_pred, t_pred, m.mp_pos, torch.zeros_like(idx), feats.xy[safe],
+        feats.sigma2[safe], matched & m.mp_valid, rig)
+    keep = matched & inlier
+    return R, t, _feat_mp_from(idx, keep, F, M), n_in, vis, keep
+
+
+def _feat_mp_from(idx, keep, F: int, M: int):
+    """Per-feature landmark id of the kept matches, -1 elsewhere (a
+    feature two landmarks claim keeps the larger id)."""
+    dev = idx.device
+    return scatter_max(
+        torch.full((F,), -1, dtype=torch.int32, device=dev),
+        torch.where(keep, idx, F - 1),
+        torch.where(keep, torch.arange(M, dtype=torch.int32, device=dev),
+                    -1))
+
+
+def _cam0_pose(m: ms.MapState, slot: int, rig: RigParams):
+    """World-from-camera-0 pose of keyframe `slot`."""
+    R_cb, t_cb = rig.R_cb[0], rig.t_cb[0]
+    return (m.kf_R[slot] @ R_cb.T,
+            m.kf_t[slot] + m.kf_R[slot] @ (-R_cb.T @ t_cb))
+
+
+def _spawn_pair(m: ms.MapState, slot_new: int, slot_ref: int, rig_kind: int,
+                rig: RigParams, cap_new: int,
+                min_parallax: float = 0.99995):
+    """Triangulate new landmarks between keyframe `slot_new` and one
+    reference keyframe. A negative reference (early in a map) is read as
+    slot 0 and masked out by `ref_ok`: it matches nothing, and its row of
+    `kf_obs` is rewritten unchanged, as in the reference package.
+    Returns (m', n_new)."""
+    F = m.kf_xy.shape[1]
+    ref_ok = m.kf_valid[max(slot_ref, 0)] & (slot_ref >= 0) \
+        & (slot_ref != slot_new)
+    slot_ref = max(slot_ref, 0)
+    d1 = m.kf_desc[slot_new]
+    un1 = (m.kf_obs[slot_new] < 0) & m.kf_feat_valid[slot_new]
+    un2 = (m.kf_obs[slot_ref] < 0) & m.kf_feat_valid[slot_ref] & ref_ok
+    idx, hdist = matcher.match_nn(d1, un1, m.kf_desc[slot_ref], un2,
+                                  max_dist=64, ratio=0.9, mutual=True)
+    idx = matcher.dedup_targets(idx, hdist, F)
+
+    # relative pose cam1 (new keyframe) <- cam2 (reference keyframe)
+    R1, t1 = _cam0_pose(m, slot_new, rig)
+    R2, t2 = _cam0_pose(m, slot_ref, rig)
+    R12 = R1.T @ R2
+    t12 = R1.T @ (t2 - t1)
+    matched = idx >= 0
+    safe = torch.where(matched, idx, 0).to(torch.int64)
+    params = rig.params[0].expand(F, 8)
+    X_c1, _, tri_ok = triangulation.triangulate_matches(
+        rig_kind, params, params, R12.expand(F, 3, 3), t12.expand(F, 3),
+        m.kf_xy[slot_new], m.kf_xy[slot_ref][safe],
+        sigma_level1=m.kf_sigma2[slot_new],
+        sigma_level2=m.kf_sigma2[slot_ref][safe],
+        min_cos_parallax=min_parallax)
+    good = matched & tri_ok
+    X_w = X_c1 @ R1.T + t1
+    m2, slot_mp, write, n = ms.write_new_landmarks(m, good, X_w, d1,
+                                                   slot_new, cap_new)
+    # the reference's two row writes, in its order: the new keyframe's,
+    # then the reference keyframe's (the same row when slot_ref was
+    # clamped onto slot_new, which then stays as it was)
+    kf_obs = m.kf_obs.clone()
+    kf_obs[slot_new] = torch.where(write, slot_mp, m.kf_obs[slot_new])
+    kf_obs[slot_ref] = scatter_max(m.kf_obs[slot_ref], safe,
+                                   torch.where(write, slot_mp, -1))
+    return m2._replace(kf_obs=kf_obs), n
+
+
+def spawn_landmarks(m: ms.MapState, slot_new: int, ref_slots, rig_kind: int,
+                    rig: RigParams, cap_new: int, n_refs: int = 4,
+                    min_parallax: float = 0.99995):
+    """Triangulate new landmarks between a new keyframe and the `n_refs`
+    reference keyframes `ref_slots` (Python ints, -1 skipped), then
+    refresh the landmark geometry (reference: LocalMapping::
+    CreateNewMapPoints, src/LocalMapping.cc:395, which searches ~10-20
+    covisible keyframes; here the most recent ones).
+    Returns (m', n_new)."""
+    total = 0
+    for j in range(n_refs):
+        m, n = _spawn_pair(m, slot_new, int(ref_slots[j]), rig_kind, rig,
+                           cap_new, min_parallax)
+        total = total + n
+    return ms.update_mp_geometry(m), total
+
+
+def bind_landmarks(m: ms.MapState, slot: int, rig_kind: int, rig: RigParams,
+                   img_w: float, img_h: float, radius: float = 10.0,
+                   min_last_kf: int = -1):
+    """Associate keyframe `slot`'s unbound features with existing
+    landmarks by projection search (TH_LOW, ratio 0.9), leaving out the
+    landmarks the keyframe already observes; bumps the found counters of
+    the bound landmarks (reference: LocalMapping::SearchInNeighbors /
+    ORBmatcher::Fuse, src/LocalMapping.cc:786)."""
+    F = m.kf_xy.shape[1]
+    M = m.mp_pos.shape[0]
+    dev = m.kf_obs.device
+    uv_proj, lvl, vis, _ = project_landmarks(
+        m, m.kf_R[slot], m.kf_t[slot], rig_kind, rig.params[0],
+        rig.R_cb[0], rig.t_cb[0], img_w, img_h)
+    obs = m.kf_obs[slot]
+    unbound = (obs < 0) & m.kf_feat_valid[slot]
+    bound = scatter_max(torch.zeros(M, dtype=torch.bool, device=dev),
+                        torch.where(obs >= 0, obs, 0), obs >= 0)
+    vis = vis & (m.mp_last_kf >= min_last_kf)
+    idx, hdist = matcher.match_projection(
+        uv_proj, lvl, radius, m.mp_desc, vis & ~bound, m.kf_xy[slot],
+        m.kf_level[slot], m.kf_desc[slot], unbound,
+        max_dist=matcher.TH_LOW, ratio=0.9)
+    idx = matcher.dedup_targets(idx, hdist, F)
+    keep = idx >= 0
+    new_obs = scatter_max(
+        obs, torch.where(keep, idx, F - 1),
+        torch.where(keep, torch.arange(M, dtype=torch.int32, device=dev),
+                    -1))
+    return m._replace(
+        kf_obs=set_rows(m.kf_obs, slot, new_obs),
+        mp_found=m.mp_found + keep.to(torch.int32),
+        mp_last_kf=torch.where(keep, torch.full_like(m.mp_last_kf, slot),
+                               m.mp_last_kf))
 
 
 def _best_per_keyframe(m: ms.MapState, desc, t_valid):
@@ -428,6 +607,32 @@ def global_inertial_ba_step(m: ms.MapState, pre_b, edge_valid,
     return m, chi
 
 
+def relative_pose(m: ms.MapState, ref: int, R, t):
+    """(R_rel, t_rel) as numpy: the pose (R, t) relative to keyframe
+    `ref`, from one device-to-host transfer of both poses."""
+    x = torch.cat([m.kf_R[ref].reshape(9), m.kf_t[ref], R.reshape(9),
+                   t]).cpu().numpy()
+    R_ref, t_ref = x[:9].reshape(3, 3), x[9:12]
+    return R_ref.T @ x[12:21].reshape(3, 3), R_ref.T @ (x[21:] - t_ref)
+
+
+def replay_trajectory(trajectory, m: ms.MapState):
+    """(times, R [T,3,3], t [T,3]) of a host trajectory list of (time,
+    map_id, ref_slot, R_rel, t_rel) replayed against the keyframe poses of
+    map `m` (reference: mlRelativeFramePoses replayed at save time,
+    src/System.cc:717-1090)."""
+    kf_R = m.kf_R.cpu().numpy()
+    kf_t = m.kf_t.cpu().numpy()
+    times, Rs, ts = [], [], []
+    for (tm, _, ref, R_rel, t_rel) in trajectory:
+        times.append(tm)
+        Rs.append(kf_R[ref] @ R_rel)
+        ts.append(kf_t[ref] + kf_R[ref] @ t_rel)
+    return (np.asarray(times),
+            np.stack(Rs) if Rs else np.zeros((0, 3, 3)),
+            np.stack(ts) if ts else np.zeros((0, 3)))
+
+
 def recycle_map_slots(m: ms.MapState, trajectory, map_id: int):
     """Re-base trajectory entries off culled reference keyframes, then
     compact the keyframe and landmark slabs so culled slots are reusable:
@@ -465,3 +670,392 @@ def recycle_map_slots(m: ms.MapState, trajectory, map_id: int):
               R_rel, t_rel) for (tm, mid, ref, R_rel, t_rel) in traj2]
     m, n_mp = ms.compact_landmarks(m)
     return m, traj3, old_of_new.cpu().numpy(), new_of_old, int(n_mp)
+
+
+# ---------------------------------------------------------------------------
+# The host-policy one-camera tracker
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrackerConfig:
+    img_w: int = 640
+    img_h: int = 480
+    orb: extractor.OrbConfig = field(default_factory=extractor.OrbConfig)
+    max_kf: int = 64
+    max_mp: int = 8192
+    match_radius: float = 15.0
+    relost_radius: float = 30.0
+    min_inliers_track: int = 20
+    local_map_window: Optional[int] = None  # None = whole-map tracking
+    # extraction and tracking as one call (`frame_step`)
+    fused_frontend: bool = False
+    kf_min_inlier_frac: float = 0.75   # new KF if tracked < frac * ref
+    kf_min_inliers_abs: int = 60       # ... or tracked below this count
+    new_mp_cap: int = 256
+    ba_window: int = 8
+    # window that settles the map after a loop closure; read only by the
+    # loop-closer arm, which is not ported yet
+    gba_window: Optional[int] = 24
+    init_min_matches: int = 80
+    # LOST frames before the map is parked in the atlas for a fresh one
+    # (reference: CreateMapInAtlas, src/Tracking.cc:1953-1968); read only
+    # with an atlas, which is not ported yet
+    max_lost_frames: int = 20
+
+
+class Tracker:
+    """One-camera (MONOCULAR, or RGBD when `process_frame` gets depth
+    maps) tracker with its policy on the host; the state machine mirrors
+    Tracking::Track (reference: src/Tracking.cc:1781-2230).
+
+    Usage:
+        tr = Tracker(rig, cfg)            # on the current GPU
+        for img, t in frames:
+            tr.process_frame(img, t)      # depth=... for RGB-D
+        times, R, t = tr.get_trajectory()
+
+    The map and the pose live on `device`; the state machine and the
+    trajectory live on the host. The host reads device values where the
+    reference package does: the inlier count of every tracking step, the
+    init's match count and success (and its points), the relocalization's
+    success, the depth init's counts, the keyframe count of a recycle, and
+    the two poses each trajectory entry is stored from (one transfer)."""
+
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+    def __init__(self, rig: RigParams, cfg: TrackerConfig, seed: int = 0,
+                 loop_closer=None, atlas=None, dist=None, device=None):
+        """dist: optional [C, 4] radtan (k1, k2, p1, p2) of a distorted
+        pinhole rig (the keypoints are undistorted right after extraction,
+        reference: Frame::UndistortKeyPoints); device: where the map and
+        the pose live (the current CUDA device when None)."""
+        if atlas is not None:
+            raise NotImplementedError(_LATER.format(
+                "Queue 1 item 6: multi-map, the atlas and its tracker arms"))
+        if loop_closer is not None:
+            raise NotImplementedError(_LATER.format(
+                "Queue 1 item 5: host place recognition and "
+                "loop_closing.LoopCloser"))
+        self.device = dev = resolve_device(device)
+        self.rig = rig.to(dev)
+        self.cfg = cfg
+        self.dist = None if dist is None else torch.as_tensor(
+            np.asarray(dist, np.float32)).to(dev)
+        self.loop_closer = None
+        self.atlas = None
+        self.state = self.NOT_INITIALIZED
+        self.map = ms.allocate(cfg.max_kf, cfg.orb.n_features, cfg.max_mp,
+                               device=dev)
+        self.map_id = 0
+        self.lost_frames = 0
+        # localization-only: track, never extend the map
+        # (reference: ActivateLocalizationMode, System.h:132)
+        self.localization_only = False
+        # replaces the reference's PRNG key (two-view and PnP RANSAC draws)
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        self._init_feats = None
+        self._init_time = None
+        self._frame_depth = None
+        self.R = torch.eye(3, device=dev)
+        self.t = torch.zeros(3, device=dev)
+        self.R_prev = torch.eye(3, device=dev)
+        self.t_prev = torch.zeros(3, device=dev)
+        self.vel_R = torch.eye(3, device=dev)   # T_k = T_{k-1} * vel
+        self.vel_t = torch.zeros(3, device=dev)
+        self.last_kf_slot = -1
+        self.ref_kf_inliers = 0
+        # (time, map_id, ref_kf, R_rel, t_rel) per frame, relative to the
+        # latest keyframe so that map corrections move the trajectory
+        # (reference: mlRelativeFramePoses, src/System.cc:717)
+        self.trajectory = []
+        self.n_kf = 0
+
+    # -- helpers -----------------------------------------------------------
+    def _ext(self, img) -> extractor.Features:
+        feats = extractor.extract(img, self.cfg.orb)
+        if self.dist is not None:
+            feats = extractor.undistort_features(feats, self.rig.params[0],
+                                                 self.dist[0])
+        return feats
+
+    def _bearing_z1(self, feats):
+        """Normalized z=1 coordinates of features through camera 0."""
+        ray = cameras.unproject(self.rig.kind, self.rig.params[0], feats.xy)
+        z = torch.clamp(ray[:, 2], min=1e-6)
+        return ray[:, :2] / z[:, None]
+
+    # -- initialization ----------------------------------------------------
+    def _try_initialize(self, feats, time, sample_idx=None):
+        """Monocular two-view init against the reference frame, which slides
+        forward while too few features match (reference:
+        Tracking::MonocularInitialization, src/Tracking.cc:2411): median
+        depth scaled to 1, keyframes 0 and 1, a two-keyframe BA.
+        sample_idx: optional (idx8 [256, 8], idx4 [256, 4])."""
+        cfg, rig, dev = self.cfg, self.rig, self.device
+        if self._init_feats is None:
+            self._init_feats, self._init_time = feats, time
+            return False
+        f0 = self._init_feats
+        idx, _ = matcher.match_nn(
+            feats.desc, feats.valid, f0.desc, f0.valid,
+            max_dist=matcher.TH_LOW, ratio=0.9, mutual=True)
+        if int((idx >= 0).sum()) < cfg.init_min_matches:
+            self._init_feats, self._init_time = feats, time
+            return False
+
+        matched = idx >= 0
+        safe = torch.where(matched, idx, 0).to(torch.int64)
+        res = two_view.reconstruct(
+            self.gen, self._bearing_z1(f0)[safe], self._bearing_z1(feats),
+            matched, focal=float(rig.params[0, 0]), sample_idx=sample_idx)
+        if not bool(res.success):
+            return False
+
+        good = res.is_good.cpu().numpy()
+        points = res.points.cpu().numpy()
+        med = float(np.median(points[:, 2][good])) if good.any() else 1.0
+        scale = 1.0 / max(med, 1e-6)
+        pts_c0 = points * scale                 # in the first camera
+        R01 = res.R.cpu().numpy()               # cam1-from-cam0
+        t01 = res.t.cpu().numpy() * scale
+        # world = the first camera; keyframe 1 at inv(R01, t01)
+        R_w1 = torch.as_tensor(R01.T).to(dev)
+        t_w1 = torch.as_tensor(-R01.T @ t01).to(dev)
+
+        F, M = cfg.orb.n_features, cfg.max_mp
+        n_new = int(good.sum())
+        # feature i of this frame matches feature idx[i] of the reference
+        order = np.cumsum(good) - 1
+        slot_np = np.where(good, order, -1).astype(np.int32)
+        obs0 = np.full((F,), -1, np.int32)
+        idx_np = idx.cpu().numpy()
+        sel = good & (idx_np >= 0)
+        obs0[idx_np[sel]] = slot_np[sel]
+
+        m = self.map
+        write = torch.as_tensor(good & (order < M)).to(dev)
+        tgt = torch.where(write, torch.as_tensor(slot_np).to(dev),
+                          M).to(torch.int64)
+        mp_pos = torch.zeros((M + 1, 3), device=dev)
+        mp_pos[tgt] = torch.as_tensor(pts_c0).to(dev)
+        mp_desc = torch.zeros((M + 1, 256), dtype=torch.int8, device=dev)
+        mp_desc[tgt] = feats.desc
+        newly = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+        newly[tgt] = write
+        newly = newly[:M]
+        m = m._replace(
+            mp_pos=torch.where(newly[:, None], mp_pos[:M], m.mp_pos),
+            mp_desc=torch.where(newly[:, None], mp_desc[:M], m.mp_desc),
+            mp_valid=newly,
+            n_mp=torch.tensor(n_new, dtype=torch.int32, device=dev))
+        z3 = torch.zeros(3, device=dev)
+        zc = torch.zeros(F, dtype=torch.int32, device=dev)
+        m = ms.insert_keyframe(
+            m, 0, torch.eye(3, device=dev), z3, z3, z3, z3, self._init_time,
+            f0.xy, f0.desc, f0.level, f0.sigma2, zc, f0.valid,
+            torch.as_tensor(obs0).to(dev))
+        m = ms.insert_keyframe(
+            m, 1, R_w1, t_w1, z3, z3, z3, time, feats.xy, feats.desc,
+            feats.level, feats.sigma2, zc, feats.valid,
+            torch.as_tensor(slot_np).to(dev))
+        m = ms.update_mp_geometry(m)
+        self.map, _ = local_ba_step(m, 1, rig.kind, rig, window=2)
+        self.R, self.t = R_w1, t_w1
+        self.R_prev = torch.eye(3, device=dev)
+        self.t_prev = torch.zeros(3, device=dev)
+        self.last_kf_slot = 1
+        self.n_kf = 2
+        self.ref_kf_inliers = n_new
+        self.state = self.OK
+        return True
+
+    # -- RGB-D -------------------------------------------------------------
+    def _depth_at(self, feats, depth):
+        """The depth map sampled at the features. Returns (d, valid)."""
+        return depth_mod.sample_depth(depth, feats.xy)
+
+    def _initialize_rgbd(self, feats, depth, time):
+        """Metric initialization from one depth frame: keyframe 0 and its
+        landmarks straight from measured depth (reference:
+        Tracking::StereoInitialization, src/Tracking.cc:2232)."""
+        cfg, rig, dev = self.cfg, self.rig, self.device
+        d, ok = self._depth_at(feats, depth)
+        if int((ok & feats.valid).sum()) < cfg.init_min_matches:
+            return False
+        z3 = torch.zeros(3, device=dev)
+        F = cfg.orb.n_features
+        m = ms.insert_keyframe(
+            self.map, 0, torch.eye(3, device=dev), z3, z3, z3, z3, time,
+            feats.xy, feats.desc, feats.level, feats.sigma2,
+            torch.zeros(F, dtype=torch.int32, device=dev), feats.valid,
+            torch.full((F,), -1, dtype=torch.int32, device=dev))
+        m, n_new = depth_mod.spawn_from_depth(
+            m, 0, rig.kind, rig.params[0], rig.R_cb[0], rig.t_cb[0], d,
+            ok & feats.valid, cap_new=F)
+        self.map = m
+        self.R = torch.eye(3, device=dev)
+        self.t = torch.zeros(3, device=dev)
+        self.last_kf_slot = 0
+        self.n_kf = 1
+        self.ref_kf_inliers = int(n_new)
+        self.state = self.OK
+        return True
+
+    # -- main entry --------------------------------------------------------
+    def process_frame(self, img, time: float, depth=None, sample_idx=None):
+        """img: [H, W] (uint8 or float32; numpy or a tensor); depth:
+        [H, W] z-depth map, 0 = hole (RGB-D); sample_idx: optional RANSAC
+        samples for this frame, handed to whichever solver runs: the
+        two-view init's (idx8 [256, 8], idx4 [256, 4]) or the
+        relocalization's ([3, n_hyp, 6]). Returns whether the frame
+        tracked (or initialized)."""
+        cfg, rig, dev = self.cfg, self.rig, self.device
+        img = torch.as_tensor(img).to(device=dev, dtype=torch.float32)
+        self._frame_depth = None if depth is None else torch.as_tensor(
+            depth).to(device=dev, dtype=torch.float32)
+
+        if self.state == self.NOT_INITIALIZED:
+            feats = self._ext(img)
+            if self._frame_depth is not None:
+                ok = self._initialize_rgbd(feats, self._frame_depth, time)
+            else:
+                ok = self._try_initialize(feats, time, sample_idx)
+            self._record(time)
+            return ok
+
+        if self.state == self.LOST:
+            # relocalization attempt (reference: Tracking.cc:3543)
+            feats = self._ext(img)
+            ok_r, R_r, t_r, _ = relocalize_step(
+                self.map, feats, self.gen, rig.kind, rig,
+                sample_idx=sample_idx)
+            if not bool(ok_r):
+                self.lost_frames += 1
+                self._record(time)
+                return False
+            self.R, self.t = R_r, t_r
+            self.vel_R = torch.eye(3, device=dev)
+            self.vel_t = torch.zeros(3, device=dev)
+            self.lost_frames = 0
+            self.state = self.OK
+
+        # motion-model prediction (reference: Tracking.cc mVelocity)
+        R_pred = self.R @ self.vel_R
+        t_pred = self.t + self.R @ self.vel_t
+        min_last = (-1 if cfg.local_map_window is None
+                    else self.last_kf_slot - cfg.local_map_window)
+        W, H = float(cfg.img_w), float(cfg.img_h)
+        if cfg.fused_frontend:
+            R, t, feat_mp, n_in, vis, keep, feats = frame_step(
+                self.map, img, R_pred, t_pred, rig.kind, rig, cfg.orb, W, H,
+                cfg.match_radius, min_last,
+                None if self.dist is None else self.dist[0])
+        else:
+            feats = self._ext(img)
+            R, t, feat_mp, n_in, vis, keep = track_step(
+                self.map, feats, R_pred, t_pred, rig.kind, rig, W, H,
+                cfg.match_radius, min_last)
+        n_in = int(n_in)
+        if n_in < cfg.min_inliers_track:
+            # wider search from the last pose against the whole map
+            # (RECENTLY_LOST coast + implicit relocalization)
+            R, t, feat_mp, n_in, vis, keep = track_step(
+                self.map, feats, self.R, self.t, rig.kind, rig, W, H,
+                cfg.relost_radius)
+            n_in = int(n_in)
+            if n_in < cfg.min_inliers_track:
+                self.state = self.LOST
+                self._record(time)
+                return False
+
+        # motion model: vel = T_{k-1}^-1 T_k (body frame)
+        self.vel_R = self.R.T @ R
+        self.vel_t = self.R.T @ (t - self.t)
+        self.R_prev, self.t_prev = self.R, self.t
+        self.R, self.t = R, t
+        self.state = self.OK
+        self.lost_frames = 0
+
+        m = self.map
+        self.map = m._replace(
+            mp_visible=m.mp_visible + vis.to(torch.int32),
+            mp_found=m.mp_found + keep.to(torch.int32))
+
+        # keyframe decision (reference: NeedNewKeyFrame, simplified: the
+        # tracked share against the reference keyframe's)
+        need_kf = (n_in < cfg.kf_min_inlier_frac * max(self.ref_kf_inliers, 1)
+                   or n_in < cfg.kf_min_inliers_abs)
+        if need_kf and not self.localization_only:
+            if self.n_kf >= cfg.max_kf:
+                self._recycle_slots()
+            if self.n_kf < cfg.max_kf:
+                self._insert_keyframe(feats, time, feat_mp, n_in)
+
+        self._record(time)
+        return True
+
+    def _record(self, time):
+        """Store the frame's pose relative to the latest keyframe."""
+        ref = max(self.last_kf_slot, 0)
+        self.trajectory.append((time, self.map_id, ref) + relative_pose(
+            self.map, ref, self.R, self.t))
+
+    def get_trajectory(self):
+        """(times, R [T,3,3], t [T,3]) replayed against the final map."""
+        return replay_trajectory(self.trajectory, self.map)
+
+    def _recycle_slots(self):
+        """Free keyframe and landmark slots when the slab is full: compact
+        the culled slots out; if culling freed nothing, temporally decimate
+        the old half of the map first (reference deletes keyframes
+        outright, src/LocalMapping.cc:974)."""
+        if int(self.map.kf_valid.sum()) >= self.cfg.max_kf:
+            self.map, _ = ms.decimate_keyframes(self.map, self.n_kf - 1)
+        self.map, self.trajectory, _, new_of_old, _ = recycle_map_slots(
+            self.map, self.trajectory, self.map_id)
+        if self.last_kf_slot >= 0:
+            self.last_kf_slot = int(new_of_old[self.last_kf_slot])
+        self.n_kf = int(self.map.n_kf)
+
+    def _insert_keyframe(self, feats, time, feat_mp, n_in: int):
+        """The mapper chain on a new keyframe: depth landmarks (RGB-D)
+        first, then triangulation against the four most recent keyframes,
+        bind, fuse, cull landmarks and keyframes, and the window BA
+        (reference: src/LocalMapping.cc:59-283)."""
+        cfg, rig, dev = self.cfg, self.rig, self.device
+        slot = self.n_kf
+        z3 = torch.zeros(3, device=dev)
+        F = cfg.orb.n_features
+        self.map = ms.insert_keyframe(
+            self.map, slot, self.R, self.t, z3, z3, z3, time,
+            feats.xy, feats.desc, feats.level, feats.sigma2,
+            torch.zeros(F, dtype=torch.int32, device=dev), feats.valid,
+            feat_mp)
+        if self._frame_depth is not None:
+            # RGB-D: close landmarks straight from measured depth
+            # (reference: CreateNewKeyFrame, src/Tracking.cc:3159)
+            d, ok = self._depth_at(feats, self._frame_depth)
+            self.map, _ = depth_mod.spawn_from_depth(
+                self.map, slot, rig.kind, rig.params[0], rig.R_cb[0],
+                rig.t_cb[0], d, ok & feats.valid, cap_new=cfg.new_mp_cap)
+        self.map, _ = spawn_landmarks(
+            self.map, slot, [slot - 1 - j for j in range(4)], rig.kind, rig,
+            cfg.new_mp_cap)
+        min_last = (-1 if cfg.local_map_window is None
+                    else slot - cfg.local_map_window)
+        self.map = bind_landmarks(self.map, slot, rig.kind, rig,
+                                  float(cfg.img_w), float(cfg.img_h),
+                                  min_last_kf=min_last)
+        self.map = fuse_new_landmarks(self.map, slot, cap=cfg.new_mp_cap)
+        self.map = cull_landmarks(self.map, slot)
+        self.map, _ = cull_keyframes(self.map, slot)
+        self.map, _ = local_ba_step(self.map, slot, rig.kind, rig,
+                                    window=cfg.ba_window)
+        self.last_kf_slot = slot
+        self.n_kf += 1
+        self.ref_kf_inliers = max(n_in, 1)
+        self.R = self.map.kf_R[slot]
+        self.t = self.map.kf_t[slot]

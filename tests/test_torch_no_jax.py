@@ -22,6 +22,11 @@ def test_port_imports_without_jax():
         "from openmavis_tpu_torch.pipeline import multi_tracking\n"
         "for n in ('MultiTracker', 'MultiTrackerConfig'):\n"
         "    assert hasattr(multi_tracking, n), n\n"
+        "from openmavis_tpu_torch.pipeline import streaming, tracking\n"
+        "for mod, n in ((tracking, 'Tracker'), (tracking, 'TrackerConfig'),\n"
+        "               (streaming, 'StreamingTracker'),\n"
+        "               (streaming, 'StreamConfig')):\n"
+        "    assert hasattr(mod, n), n\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'openmavis_tpu' or m.startswith('openmavis_tpu.'))\n"
