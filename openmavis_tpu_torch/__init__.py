@@ -17,11 +17,14 @@ frontend   Image pyramid, FAST + oriented-BRIEF extraction, Hamming matching
            frontend/matcher_cuda.py, its source in csrc/), depth priors.
 solvers    RANSAC two-view (E/H), PnP and Sim3 solvers.
 optim      Levenberg-Marquardt, Schur-complement BA, inertial factors.
-slam_map   Fixed-capacity map slabs, LSH bag-of-words signatures.
+slam_map   Fixed-capacity map slabs, LSH bag-of-words signatures, the
+           binary vocabulary tree and the keyframe database (dense and
+           word-sparse).
 pipeline   The streaming VI tracker (multi-camera, mono, RGB-D) and its
            device loop closer; the host-policy rig tracker MultiTracker;
            the one-camera visual trackers tracking.Tracker (MONOCULAR,
-           RGB-D) and streaming.StreamingTracker.
+           RGB-D) and streaming.StreamingTracker; the host-policy
+           loop_closing.LoopCloser all four take as `loop_closer=`.
 io         Synthetic scenes and trajectory evaluation (numpy).
 """
 

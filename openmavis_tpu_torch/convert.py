@@ -4,7 +4,9 @@ The JAX side is given as dicts of numpy arrays keyed by field name (for a
 NamedTuple `x`: `{k: np.asarray(v) for k, v in x._asdict().items()}`;
 nested NamedTuples as nested dicts; the host-policy trackers'
 attributes as `multi_tracker_state_to_numpy` and `tracker_state_to_numpy`
-lay them out). `*_from_numpy` builds the port's
+lay them out, the streaming trackers' host state as
+`streaming_state_to_numpy`, the loop closer's as
+`loop_closer_state_to_numpy`). `*_from_numpy` builds the port's
 tensors on a given device (the current CUDA device when none is given)
 and `*_to_numpy` goes back. Every field takes
 the dtype the port allocates it with: int32 indices, int8 descriptor
@@ -20,13 +22,16 @@ from . import resolve_device
 from .imu import preintegration as pre_mod
 from .optim.reprojection import RigParams
 from .frontend import extractor
+from .pipeline import loop_closing as lc_mod
 from .pipeline import multi_tracking as mt
 from .pipeline import streaming as stm
 from .pipeline import streaming_lc as slc
 from .pipeline import streaming_vi as svi
 from .pipeline import tracking as trk
 from .pipeline.streaming import TrajRing
+from .slam_map import keyframe_db as kdb
 from .slam_map import map_state as ms
+from .slam_map import vocabulary as voc
 
 _MAP_DTYPES = {f: t.dtype for f, t in
                zip(ms.MapState._fields,
@@ -296,3 +301,97 @@ def tracker_state_from_numpy(d: dict, tr: trk.Tracker) -> None:
                      for (tm, mid, ref, R, t) in d["trajectory"]]
     if "key" in d:
         _seed_from_key(tr.gen, d["key"])
+
+
+# the host-policy loop closer: vocabulary, word-sparse database, the
+# pending hypothesis and the counters
+
+def vocabulary_to_numpy(vocab: voc.Vocabulary) -> dict:
+    """centers (a list of [k^(l+1), 256] int8), idf [n_words] f32, k."""
+    return dict(centers=[_np(c) for c in vocab.centers], idf=_np(vocab.idf),
+                k=int(vocab.k))
+
+
+def vocabulary_from_numpy(d: dict, device=None) -> voc.Vocabulary:
+    device = resolve_device(device)
+    return voc.Vocabulary(
+        centers=tuple(_t(c, torch.int8, device) for c in d["centers"]),
+        idf=_t(d["idf"], torch.float32, device), k=int(d["k"]))
+
+
+_SPARSE_DB_DTYPES = dict(word=torch.int32, wt=torch.float32,
+                         valid=torch.bool)
+
+
+def sparse_kfdb_to_numpy(db: kdb.SparseKeyframeDB) -> dict:
+    return {k: _np(v) for k, v in db._asdict().items()}
+
+
+def sparse_kfdb_from_numpy(d: dict, device=None) -> kdb.SparseKeyframeDB:
+    return kdb.SparseKeyframeDB(**_fields_from(d, _SPARSE_DB_DTYPES, device))
+
+
+def loop_closer_state_to_numpy(lc: lc_mod.LoopCloser) -> dict:
+    """A `LoopCloser`'s state as host values: `vocab` and `db` (numpy
+    dicts, or None before the session vocabulary is trained), `pending`
+    (None, or cand / slot / count as ints and s / R / t as numpy),
+    `n_loops`, `n_merges`, and `key`, the generator's seed as a [2]
+    uint32 PRNG key (see `carry_from_numpy`)."""
+    p = lc.pending
+    return dict(
+        vocab=None if lc.vocab is None else vocabulary_to_numpy(lc.vocab),
+        db=None if lc.db is None else sparse_kfdb_to_numpy(lc.db),
+        pending=None if p is None else dict(
+            cand=int(p["cand"]), slot=int(p["slot"]), count=int(p["count"]),
+            s=_np(p["s"]), R=_np(p["R"]), t=_np(p["t"])),
+        n_loops=int(lc.n_loops), n_merges=int(lc.n_merges),
+        key=_key_of(lc.gen))
+
+
+def loop_closer_state_from_numpy(d: dict, lc: lc_mod.LoopCloser) -> None:
+    """Set the state `d` (laid out as `loop_closer_state_to_numpy` does;
+    from the reference package: its `LoopCloser`'s attributes of the same
+    names as numpy, `key` its PRNG key) on the port closer `lc`, on
+    `lc.device`."""
+    dev = lc.device
+    lc.vocab = (None if d["vocab"] is None
+                else vocabulary_from_numpy(d["vocab"], dev))
+    lc.db = None if d["db"] is None else sparse_kfdb_from_numpy(d["db"], dev)
+    p = d["pending"]
+    lc.pending = None if p is None else dict(
+        cand=int(p["cand"]), slot=int(p["slot"]), count=int(p["count"]),
+        **{k: _t(p[k], torch.float32, dev) for k in ("s", "R", "t")})
+    lc.n_loops = int(d["n_loops"])
+    lc.n_merges = int(d["n_merges"])
+    if "key" in d:
+        _seed_from_key(lc.gen, d["key"])
+
+
+def streaming_state_to_numpy(tr) -> dict:
+    """A streaming tracker's host-side state (`StreamingVITracker` or
+    `streaming.StreamingTracker`): the map, the carry, `_last_lc_slot`
+    (the newest keyframe `maybe_close_loop` handled) and, for the VI
+    tracker, `_t_prev` (the last frame's time)."""
+    vi = isinstance(tr, svi.StreamingVITracker)
+    d = dict(map=map_to_numpy(tr.map),
+             carry=(carry_to_numpy if vi else stream_carry_to_numpy)(
+                 tr.carry),
+             _last_lc_slot=int(tr._last_lc_slot))
+    if vi:
+        d["_t_prev"] = tr._t_prev
+    return d
+
+
+def streaming_state_from_numpy(d: dict, tr) -> None:
+    """Set `d` (laid out as `streaming_state_to_numpy` does; from the
+    reference package: its tracker's `map`, `carry`, `_last_lc_slot` and
+    `_t_prev` as numpy) on the port's streaming tracker `tr`."""
+    dev = tr.device
+    vi = isinstance(tr, svi.StreamingVITracker)
+    tr.map = map_from_numpy(d["map"], dev)
+    tr.carry = (carry_from_numpy if vi else stream_carry_from_numpy)(
+        d["carry"], dev)
+    tr._last_lc_slot = int(d["_last_lc_slot"])
+    if vi:
+        tr._t_prev = d["_t_prev"]
+    tr._snap = None

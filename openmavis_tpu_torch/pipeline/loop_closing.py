@@ -1,29 +1,89 @@
-"""Loop-closing building blocks: matched pairs between two keyframes,
-covisible-group projection verification and the map correction (port of
-`MatchedPairs`, `_pairs_from_tables`, `_tables`, `pairs_by_projection`,
-`group_projection_score` and `_correct_map` of
-`openmavis_tpu/pipeline/loop_closing.py`; reference: src/LoopClosing.cc
-:695 DetectCommonRegionsFromBoW, :1108 CorrectLoop).
+"""Loop closing: place recognition -> Sim3 verification -> graph correction
+(port of `openmavis_tpu/pipeline/loop_closing.py`; reference:
+src/LoopClosing.cc :401 NewDetectCommonRegions, :695
+DetectCommonRegionsFromBoW, :1108 CorrectLoop).
 
-`streaming_lc.make_lc_step` strings these into the per-frame loop closer.
+The building blocks — matched pairs between two keyframes, covisible-group
+projection verification and the map correction — serve both closers:
+`streaming_lc.make_lc_step` strings them into the per-frame device loop
+closer, and `LoopCloser` is the host-policy closer the trackers call on
+each new keyframe (`loop_closer=`): retrieval (spatial, the session
+vocabulary's word-sparse keyframe database once the map has
+`vocab_train_kf` keyframes, dense descriptor scores before), Sim3 RANSAC
+and refinement, the covisible-group gate, temporal consistency, the
+essential-graph correction (4-DoF for inertial maps, Sim3 otherwise) and
+the post-loop whole-map BA. Its accept / reject policy reads device
+values on the host, as the reference package's does.
+
 Every descriptor search here goes through `matcher.match_nn` or
 `matcher.match_projection`, i.e. through the hand-written kernels on CUDA
 tensors: two whole keyframes against each other ([C F, C F] mask, both
 directions), and the landmark slab against each camera band of the
 current keyframe.
+
+Not ported yet: `detect_merge` and its cross-map pieces (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import collections
+from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .. import resolve_device
 from ..frontend import matcher
+from ..frontend.fast import topk_stable
 from ..geometry import cameras, lie
 from ..ops import scatter_max, set_rows
+from ..optim import pose_graph, sim3_refine
+from ..slam_map import keyframe_db as kdb
 from ..slam_map import map_state as ms
+from ..slam_map import vocabulary as voc
+from ..solvers import sim3 as sim3_mod
 from . import tracking as mono
+
+
+@dataclass
+class LoopConfig:
+    """The host closer's settings (the reference's `LoopConfig`, every
+    field and default)."""
+    candidate_source: str = "descriptor"  # "descriptor" | "spatial"
+    min_desc_matches: int = 60    # direct-descriptor score floor
+    spatial_radius: float = 1.0   # candidate gate (estimate units)
+    recent_exclude: int = 8       # skip this many latest keyframes
+    covis_exclude: int = 15       # shared-point threshold for exclusion
+    min_sim3_inliers: int = 20
+    covis_edge_threshold: int = 30
+    loop_edge_weight: float = 5.0
+    # covisible-group projection verification: the hypothesized Sim3 must
+    # re-find this many of the candidate's local landmarks in the current
+    # keyframe (nProjMatches, src/LoopClosing.cc:944-994)
+    min_group_matches: int = 25
+    # temporal consistency: this many CONSECUTIVE keyframes must verify
+    # the same candidate before the map is corrected
+    # (mnLoopNumCoincidences, src/LoopClosing.cc:440-520, 1019)
+    temporal_consistency: int = 2
+    # train a session vocabulary and switch retrieval to the word-sparse
+    # keyframe database once the map has this many keyframes; dense
+    # descriptor scoring (O(K^2 F^2)) serves the smaller maps
+    vocab_train_kf: int = 40
+    vocab_train_samples: int = 20000
+    # k = 10, L = 4: 10,000 words (the reference ORBvoc is k = 10, L = 6);
+    # the database keeps each keyframe's top-W (word, weight) pairs
+    vocab_levels: int = 4
+    bow_top_w: int = 512
+    # whole-map BA after a correction (CorrectLoop ->
+    # RunGlobalBundleAdjustment, src/LoopClosing.cc:1372; FullInertialBA
+    # for inertial maps, :2366-2368)
+    run_gba: bool = True
+    # gravity-direction gate of inertial maps ("BAD LOOP",
+    # src/LoopClosing.cc:307-335 gates |phi_xy| < 0.008, |phi_z| < 0.349;
+    # tilt_max is wider: this estimator's tilt drifts 0.02-0.06 rad)
+    tilt_max: float = 0.08
+    yaw_max: float = 0.349
 
 
 class MatchedPairs(NamedTuple):
@@ -208,3 +268,365 @@ def _correct_map(m: ms.MapState, s_new, R_new, t_new) -> ms.MapState:
     return m._replace(
         kf_R=lie.normalize_rotation(R_wk), kf_t=t_wk,
         mp_pos=torch.where(m.mp_valid[:, None], p_new, m.mp_pos))
+
+
+def _cat_edges(a, b):
+    """Two edge sets of one type as one (`PoseGraphEdges` or its SE3
+    form)."""
+    return type(a)(*(torch.cat([x, y]) for x, y in zip(a, b)))
+
+
+class LoopCloser:
+    """The host-policy loop closer (the reference's LoopClosing thread as
+    a call after keyframe insertion; reference: src/LoopClosing.cc:98
+    Run). A tracker given `loop_closer=` calls `on_keyframe` on each new
+    keyframe (the streaming trackers from `maybe_close_loop`).
+
+    Usage (as the flagship example builds it):
+        lc = LoopCloser(None, cfg.max_kf, rig=rig, inertial=True,
+                        img_w=W, img_h=H)        # on the current GPU
+        tr = StreamingVITracker(rig, cfg, noise, loop_closer=lc)
+        for ...: tr.push(...); tr.maybe_close_loop()
+
+    The map is on `device` (the current CUDA device when None); the rig
+    is moved there. The accept / reject policy runs on the host and reads
+    device values where the reference does: the matched-pair count, the
+    RANSAC's and the refinement's verdicts, the gravity gate's angles,
+    the group score, the candidate list.
+
+    Randomness: a `torch.Generator` seeded from `seed` draws the RANSAC
+    samples (the reference splits a JAX key for each RANSAC call).
+    `samples`, an optional iterable of [128, 3] sample-index tensors, one
+    per RANSAC call in call order, replaces those draws while it lasts,
+    so a test can hand the port the reference's draws (`self.samples`, a
+    deque, can be refilled between calls)."""
+
+    def __init__(self, vocab: voc.Vocabulary | None, max_kf: int,
+                 cfg: LoopConfig = LoopConfig(), seed: int = 100,
+                 rig=None, inertial: bool = False, img_w: float = 640.0,
+                 img_h: float = 480.0, device=None, samples=()):
+        self.device = resolve_device(device)
+        self.vocab = vocab            # None: trained from the session
+        self.cfg = cfg
+        self.max_kf = max_kf
+        self.db = (kdb.allocate_sparse(max_kf, cfg.bow_top_w,
+                                       device=self.device)
+                   if vocab is not None else None)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self.samples = collections.deque(samples)
+        self.n_loops = 0
+        self.n_merges = 0
+        # the rig enables reprojection verification (the OptimizeSim3
+        # analog); inertial switches the correction to the 4-DoF graph
+        # and fixes the scale (bFixScale, src/LoopClosing.cc:1329)
+        self.rig = None if rig is None else rig.to(self.device)
+        self.inertial = inertial
+        self.img_w = float(img_w)
+        self.img_h = float(img_h)
+        # temporal-consistency hypothesis: {cand, slot, s, R, t, count}
+        # (mnLoopNumCoincidences and the Scw carried between keyframes,
+        # src/LoopClosing.cc:440-520)
+        self.pending: dict | None = None
+        self._chain = (None, None)
+
+    def _ransac_samples(self):
+        return self.samples.popleft() if self.samples else None
+
+    def _verify_sim3(self, pairs: MatchedPairs, res):
+        """Projection refinement of a RANSAC Sim3 (SearchByProjection +
+        OptimizeSim3, src/LoopClosing.cc:888-994). Returns the refined
+        result, or None when the rig is unknown (the RANSAC inliers then
+        stand alone)."""
+        if self.rig is None:
+            return None
+        rig = self.rig
+        C = rig.params.shape[0]
+        cam_a = torch.clamp(pairs.cam_a, 0, C - 1).to(torch.int64)
+        cam_b = torch.clamp(pairs.cam_b, 0, C - 1).to(torch.int64)
+        return sim3_refine.refine_sim3(
+            res.s, res.R, res.t, pairs.p_a, pairs.p_b, pairs.uv_a,
+            pairs.uv_b, pairs.sigma2_a, pairs.sigma2_b,
+            pairs.valid & res.inlier, rig.kind, rig.params[cam_a],
+            rig.params[cam_b], rig.R_cb[cam_a], rig.t_cb[cam_a],
+            rig.R_cb[cam_b], rig.t_cb[cam_b], fix_scale=self.inertial)
+
+    # -- retrieval ---------------------------------------------------------
+    def _maybe_train_vocab(self, m: ms.MapState):
+        """Train a session vocabulary from the map's own descriptors and
+        backfill the keyframe database once the map outgrows dense scoring
+        (the reference system's pre-trained ORBvoc + KeyFrameDatabase,
+        src/KeyFrameDatabase.cc:581)."""
+        cfg = self.cfg
+        if self.vocab is not None or int(m.n_kf) < cfg.vocab_train_kf:
+            return
+        flat = m.kf_desc[m.kf_valid][m.kf_feat_valid[m.kf_valid]]
+        flat = flat.cpu().numpy()
+        if len(flat) < 1000:
+            return
+        rng = np.random.default_rng(0)
+        take = min(cfg.vocab_train_samples, len(flat))
+        flat = flat[rng.permutation(len(flat))[:take]]
+        self.vocab = voc.train(flat, k=10, levels=cfg.vocab_levels,
+                               device=self.device)
+        # backfill the word-sparse database for every existing keyframe,
+        # one keyframe at a time (the tree descent of a whole slab at once
+        # would hold [K F, k, 256] differences)
+        db = kdb.allocate_sparse(self.max_kf, cfg.bow_top_w,
+                                 device=self.device)
+        slots = torch.nonzero(m.kf_valid).flatten()
+        words, wts = voc.transform_sparse(
+            self.vocab, m.kf_desc[slots], m.kf_feat_valid[slots],
+            cfg.bow_top_w)
+        self.db = kdb.SparseKeyframeDB(
+            word=db.word.index_copy(0, slots, words),
+            wt=db.wt.index_copy(0, slots, wts), valid=m.kf_valid.clone())
+
+    def _candidates(self, m: ms.MapState, slot: int, cov) -> list:
+        """Top loop candidates: the spatial gate, the word-sparse
+        database's scores once the session vocabulary exists, dense
+        descriptor scores before."""
+        cfg = self.cfg
+        K = m.kf_valid.shape[0]
+        recent = torch.arange(K, device=cov.device) > slot - cfg.recent_exclude
+        exclude = (cov[slot] >= cfg.covis_exclude) | recent | ~m.kf_valid
+
+        if cfg.candidate_source == "spatial":
+            d = torch.linalg.norm(m.kf_t - m.kf_t[slot], dim=-1)
+            scores = torch.where(exclude | (d > cfg.spatial_radius),
+                                 -torch.inf, -d)
+            top = topk_stable(scores, 3)[1]
+            ok = torch.isfinite(scores[top])
+        elif self.vocab is not None:
+            q_word, q_wt = voc.transform_sparse(
+                self.vocab, m.kf_desc[slot], m.kf_feat_valid[slot],
+                cfg.bow_top_w)
+            self.db = kdb.add_sparse(self.db, slot, q_word, q_wt)
+            nw = self.vocab.n_words
+            min_score = kdb.min_covisible_score_sparse(
+                self.db, q_word, q_wt, cov[slot], nw,
+                cov_threshold=cfg.covis_exclude)
+            _, top, ok = kdb.query_sparse(self.db, q_word, q_wt, exclude,
+                                          min_score, nw)
+        else:
+            scores = mono.descriptor_place_scores(m, slot)
+            scores = torch.where(exclude, -1, scores)
+            top = topk_stable(scores, 3)[1]
+            ok = scores[top] >= cfg.min_desc_matches
+        top, ok = torch.stack([top, ok.to(top.dtype)]).tolist()
+        return [int(c) for c, o in zip(top, ok) if o]
+
+    def _group_score(self, m, slot: int, cand: int, cov, s, R, t) -> int:
+        if self.rig is None:
+            return 1 << 20   # no rig: the gate degrades to a no-op
+        return int(group_projection_score(
+            m, slot, cand, cov[cand], s, R, t, self.rig.kind,
+            int(self.rig.params.shape[0]), self.rig, self.img_w,
+            self.img_h))
+
+    def _solve_pair(self, m, slot: int, cand: int):
+        """Matched pairs -> RANSAC Sim3 -> projection refinement -> (on
+        inertial maps) the gravity gate. Returns the result or None."""
+        cfg = self.cfg
+        tables = _tables(m)
+        pairs = _pairs_from_tables(tables, tables, slot, cand)
+        if int(pairs.valid.sum()) < cfg.min_sim3_inliers:
+            return None
+        if self.rig is not None:
+            # reprojection-gated (Sim3Solver::CheckInliers semantics)
+            res = sim3_mod.ransac_sim3_reproj(
+                self.gen, pairs, self.rig.kind, self.rig,
+                fix_scale=self.inertial, min_inliers=cfg.min_sim3_inliers,
+                sample_idx=self._ransac_samples())
+        else:
+            res = sim3_mod.ransac_sim3(
+                self.gen, pairs.p_a, pairs.p_b, pairs.valid,
+                fix_scale=self.inertial, min_inliers=cfg.min_sim3_inliers,
+                sample_idx=self._ransac_samples())
+        if not bool(res.success):
+            return None
+        ref = self._verify_sim3(pairs, res)
+        if ref is not None:
+            if int(ref.n_inliers) < cfg.min_sim3_inliers:
+                return None
+            res = res._replace(s=ref.s, R=ref.R, t=ref.t, inlier=ref.inlier,
+                               n_inliers=ref.n_inliers)
+        if self.inertial:
+            # gravity-direction gate ("BAD LOOP", src/LoopClosing.cc:
+            # 307-335): refuse a world correction that tilts roll / pitch
+            # or jumps in yaw
+            R_corr = (m.kf_R[cand] @ res.R) @ m.kf_R[slot].T
+            phi = torch.abs(lie.so3_log(R_corr)).tolist()
+            if not (phi[0] < cfg.tilt_max and phi[1] < cfg.tilt_max
+                    and phi[2] < cfg.yaw_max):
+                return None
+        return res
+
+    def on_keyframe(self, m: ms.MapState, slot: int, chain=None,
+                    chain_valid=None):
+        """Detect, temporally confirm and (once verified) correct a loop
+        at keyframe `slot`. Returns (m, closed).
+
+        Acceptance chain (src/LoopClosing.cc:401-1019): (1) retrieval;
+        (2) Sim3 RANSAC on matched landmark pairs and projection
+        refinement; (3) covisible-group projection verification; (4)
+        temporal consistency: `temporal_consistency` consecutive keyframes
+        must re-verify the hypothesis before the map is corrected. After a
+        correction `cfg.run_gba` runs the whole-map BA, FullInertialBA when
+        `chain` / `chain_valid` (the per-keyframe preintegration chain,
+        entry k the interval k-1 -> k) are given."""
+        cfg = self.cfg
+        self._maybe_train_vocab(m)
+        self._chain = (chain, chain_valid)
+        cov = ms.covisibility_matrix(m)
+
+        # step 4 first: re-verify a pending hypothesis from this keyframe
+        if self.pending is not None:
+            p = self.pending
+            if slot <= p["slot"]:
+                self.pending = None
+            else:
+                # compose: S'(new -> cand) = S(old -> cand) o T(old <- new)
+                R_o, t_o = m.kf_R[p["slot"]], m.kf_t[p["slot"]]
+                R_n, t_n = m.kf_R[slot], m.kf_t[slot]
+                R2 = p["R"] @ R_o.T @ R_n
+                t2 = p["s"] * (p["R"] @ (R_o.T @ (t_n - t_o))) + p["t"]
+                score = self._group_score(m, slot, p["cand"], cov, p["s"],
+                                          R2, t2)
+                if score < cfg.min_group_matches:
+                    self.pending = None
+                else:
+                    p.update(slot=slot, R=R2, t=t2, count=p["count"] + 1)
+                    if p["count"] < cfg.temporal_consistency:
+                        return m, False
+                    res = self._solve_pair(m, slot, p["cand"])
+                    self.pending = None
+                    if res is not None:
+                        m = self._correct(m, slot, p["cand"], res, cov)
+                        self.n_loops += 1
+                        return m, True
+
+        # steps 1-3: fresh detection
+        for cand in self._candidates(m, slot, cov):
+            res = self._solve_pair(m, slot, cand)
+            if res is None:
+                continue
+            score = self._group_score(m, slot, cand, cov, res.s, res.R,
+                                      res.t)
+            if score < cfg.min_group_matches:
+                continue
+            if cfg.temporal_consistency <= 1:
+                m = self._correct(m, slot, cand, res, cov)
+                self.n_loops += 1
+                return m, True
+            self.pending = dict(cand=cand, slot=slot, s=res.s, R=res.R,
+                                t=res.t, count=1)
+            return m, False
+        return m, False
+
+    def _correct(self, m: ms.MapState, slot: int, cand: int, res, cov):
+        """Essential-graph correction with the verified loop constraint
+        (OptimizeEssentialGraph, src/Optimizer.cc:1826; 4-DoF for inertial
+        maps, src/LoopClosing.cc:1329), then the post-loop BA."""
+        cfg = self.cfg
+        K = m.kf_R.shape[0]
+        n_kf = int(m.n_kf)
+        dev = m.kf_R.device
+
+        def ones(n, dtype=torch.float32):
+            return torch.ones(n, dtype=dtype, device=dev)
+
+        # nodes: the current poses as world -> keyframe Sim3 (scale 1)
+        R_cw = m.kf_R.transpose(-1, -2)
+        t_cw = -lie._mv(R_cw, m.kf_t)
+        s0 = ones(K, t_cw.dtype)
+        edges = pose_graph.sequential_edges(s0, R_cw, t_cw, n_kf, K)
+
+        def measured(i, j, weight, valid):
+            """Edges i -> j measured from the current poses."""
+            se, Re, te = lie.sim3_compose(
+                s0[j], R_cw[j], t_cw[j],
+                *lie.sim3_inverse(s0[i], R_cw[i], t_cw[i]))
+            return pose_graph.PoseGraphEdges(
+                i=i, j=j, s=se, R=Re, t=te,
+                weight=torch.full(i.shape, weight, dtype=t_cw.dtype,
+                                  device=dev), valid=valid)
+
+        # covisibility edges (the essential graph's strong-covisibility
+        # edges), capped at the 128 of highest weight, equal weights in
+        # index order
+        cov_np = cov.cpu().numpy()
+        ii, jj = np.nonzero(np.triu(cov_np, 2) >= cfg.covis_edge_threshold)
+        keep = (ii < n_kf) & (jj < n_kf)
+        ii, jj = ii[keep], jj[keep]
+        if len(ii) > 128:
+            order = np.argsort(-cov_np[ii, jj], kind="stable")[:128]
+            dropped = len(ii) - 128
+            ii, jj = ii[order], jj[order]
+            print(f"[loop_closing] covisibility edge cap: kept top 128 "
+                  f"of {len(order) + dropped} by weight "
+                  f"({dropped} dropped)")
+        if len(ii) > 0:
+            i_t = torch.as_tensor(ii, dtype=torch.int64, device=dev)
+            j_t = torch.as_tensor(jj, dtype=torch.int64, device=dev)
+            edges = _cat_edges(edges, measured(
+                i_t, j_t, 1.0, ones(len(ii), torch.bool)))
+
+        # the loop edge: res maps body(slot) -> body(cand), so the edge
+        # cand -> slot measures S_slot S_cand^-1 = S_res^-1
+        si_r, Ri_r, ti_r = lie.sim3_inverse(res.s, res.R, res.t)
+        edges = _cat_edges(edges, pose_graph.PoseGraphEdges(
+            i=torch.tensor([cand], device=dev),
+            j=torch.tensor([slot], device=dev),
+            s=si_r[None], R=Ri_r[None], t=ti_r[None],
+            weight=torch.full((1,), cfg.loop_edge_weight, dtype=t_cw.dtype,
+                              device=dev),
+            valid=ones(1, torch.bool)))
+        # persistent edges of earlier loops, re-measured from the current
+        # poses (mspLoopEdges in every OptimizeEssentialGraph solve)
+        li = torch.clamp(m.loop_i, 0, K - 1).to(torch.int64)
+        lj = torch.clamp(m.loop_j, 0, K - 1).to(torch.int64)
+        lv = (m.loop_valid & (m.loop_i >= 0) & (m.loop_j >= 0)
+              & m.kf_valid[li] & m.kf_valid[lj])
+        if bool(lv.any()):
+            edges = _cat_edges(edges, measured(li, lj, cfg.loop_edge_weight,
+                                               lv))
+        m = ms.add_loop_edge(m, cand, slot)
+
+        fixed = set_rows(torch.zeros(K, dtype=torch.bool, device=dev), cand,
+                         True)
+        if self.inertial:
+            # gravity is observable: correct yaw and translation only
+            edges3 = pose_graph.PoseGraphEdgesSE3(
+                i=edges.i, j=edges.j, R=edges.R, t=edges.t,
+                weight=edges.weight, valid=edges.valid)
+            R_o, t_o, _ = pose_graph.optimize_pose_graph_4dof(
+                R_cw, t_cw, edges3, fixed, m.kf_valid)
+            s_o = s0
+        else:
+            s_o, R_o, t_o, _ = pose_graph.optimize_pose_graph(
+                s0, R_cw, t_cw, edges, fixed, m.kf_valid)
+        m = _correct_map(m, s_o, R_o, t_o)
+        return self._post_loop_gba(m)
+
+    def _post_loop_gba(self, m: ms.MapState):
+        """Whole-map BA after a correction (RunGlobalBundleAdjustment,
+        src/LoopClosing.cc:1372, 2351-2470; FullInertialBA for inertial
+        maps, :2366-2368). The solve covers every keyframe and landmark
+        of the slab, so no spanning-tree propagation is left to do."""
+        if not self.cfg.run_gba or self.rig is None:
+            return m
+        chain, chain_valid = self._chain
+        if chain is not None and chain_valid is not None:
+            m, _ = mono.global_inertial_ba_step(
+                m, chain.map(lambda x: x[1:]), chain_valid[1:],
+                self.rig.kind, self.rig)
+        else:
+            m, _ = mono.global_ba_step(m, self.rig.kind, self.rig)
+        return m
+
+    def detect_merge(self, atlas, slot: int):
+        raise NotImplementedError(mono._LATER.format(
+            "Queue 1 item 6: cross-map merge detection, "
+            "LoopCloser.detect_merge"))
+

@@ -596,11 +596,9 @@ class MultiTracker:
         if atlas is not None:
             raise NotImplementedError(_LATER.format(
                 "Queue 1 item 6: multi-map, the atlas and its tracker arms"))
-        if loop_closer is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 5: host place recognition and "
-                "loop_closing.LoopCloser"))
         self.device = dev = resolve_device(device)
+        # optional `loop_closing.LoopCloser`, called on each new keyframe
+        self.loop_closer = loop_closer
         self.rig = rig.to(dev)
         self.cfg = cfg
         self.dist = None if dist is None else torch.as_tensor(
@@ -1116,9 +1114,30 @@ class MultiTracker:
                 if self._imu_init_stage(0.0, 0.0, first=False):
                     self.viba_stage = 3
 
+        if self.loop_closer is not None:
+            self._close_loop(slot)
+
         self.R = self.map.kf_R[slot]
         self.t = self.map.kf_t[slot]
         self.v = self.map.kf_v[slot]
+
+    def _close_loop(self, slot: int) -> bool:
+        """The loop closer on keyframe `slot`. Once the IMU is initialized
+        it gets the stored preintegration chain (entry k the interval
+        k-1 -> k, entry 0 the identity) for its post-loop FullInertialBA.
+        Returns whether a loop closed."""
+        lc_kw = {}
+        if self.imu_initialized:
+            pre_b, cvalid = self._kf_pre_batch(self.cfg.max_kf)
+            ident = pre_mod.init_preintegrated(self.bias)
+            lc_kw = dict(
+                chain=pre_mod.Preintegrated(*(
+                    torch.cat([i[None], p]) for i, p in zip(ident, pre_b))),
+                chain_valid=torch.cat([torch.zeros(
+                    1, dtype=torch.bool, device=self.device), cvalid]))
+        self.map, closed = self.loop_closer.on_keyframe(self.map, slot,
+                                                        **lc_kw)
+        return closed
 
     def _kf_pre_batch(self, K):
         """The chain [1, K) as one batched Preintegrated + validity mask

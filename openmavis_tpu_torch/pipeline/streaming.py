@@ -12,9 +12,9 @@ trajectory ring `TrajRing` and `_masked_median`.
 
 The reference package runs the step as one jitted program under
 `lax.cond` / `lax.switch`; here each branch is a Python branch on device
-values read back to the host (`StreamStep` names the reads). Host-policy
-loop closing (`loop_closer`, `maybe_close_loop`) is not ported yet and
-raises.
+values read back to the host (`StreamStep` names the reads). With
+`loop_closer=` the host-policy `loop_closing.LoopCloser` runs on the
+newest keyframe whenever the application calls `maybe_close_loop`.
 
 Reference parity: the Tracking-thread state machine src/Tracking.cc:
 1781-2230 and the LocalMapping consumer loop src/LocalMapping.cc:59-283;
@@ -394,10 +394,6 @@ class StreamingTracker:
 
     def __init__(self, rig: RigParams, cfg: StreamConfig, seed: int = 0,
                  loop_closer=None, device=None):
-        if loop_closer is not None:
-            raise NotImplementedError(trk._LATER.format(
-                "Queue 1 item 5: host-policy loop closing, "
-                "loop_closing.LoopCloser"))
         self.device = resolve_device(device)
         self.cfg = cfg
         F = (cfg.orb or extractor.OrbConfig()).n_features
@@ -409,6 +405,8 @@ class StreamingTracker:
         # (`StreamStep.events`)
         self.step_events: tuple = ()
         self._snap = None
+        self.loop_closer = loop_closer
+        self._last_lc_slot = -1
 
     def push(self, img, time: float, sample_idx=None):
         """img: [H, W] (uint8 or float32; numpy or a tensor);
@@ -427,8 +425,25 @@ class StreamingTracker:
             torch.cuda.synchronize(self.device)
 
     def maybe_close_loop(self) -> bool:
-        raise NotImplementedError(trk._LATER.format(
-            "Queue 1 item 5: host-policy loop closing, maybe_close_loop"))
+        """Loop detection and correction on the newest keyframe, once per
+        keyframe (reference: streaming.py's `maybe_close_loop`): host
+        policy and synchronizing, so the application calls it at its own
+        cadence. On a correction the live pose is re-expressed through
+        its reference keyframe. Returns whether a loop closed."""
+        if self.loop_closer is None:
+            return False
+        slot = int(self.map.n_kf) - 1
+        if slot < 1 or slot == self._last_lc_slot:
+            return False
+        self._last_lc_slot = slot
+        self._snap = None
+        m, c = self.map, self.carry
+        m2, closed = self.loop_closer.on_keyframe(m, slot)
+        if closed:
+            R, t, _ = trk.rebase_pose(m, m2, c.last_kf_slot, c.R, c.t)
+            self.carry = c._replace(R=R, t=t)
+        self.map = m2
+        return closed
 
     def snapshot(self) -> dict:
         """Trajectory ring, keyframe poses and counters as numpy, in one

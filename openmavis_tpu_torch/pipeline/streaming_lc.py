@@ -288,18 +288,14 @@ class LCStep:
             s_o, R_o, t_o, _ = pose_graph.optimize_pose_graph(
                 s0, R_cw, t_cw, edges, fixed, m.kf_valid)
 
-        old_R, old_t = m.kf_R, m.kf_t
+        m_old = m
         m = lc_mod._correct_map(m, s_o, R_o, t_o)
         if self.run_gba:
             m = self.gba_step(m, c, rig)
 
         # re-express the live tracker pose through its reference keyframe
-        ref = torch.clamp(c.last_kf_slot, min=0)
-        oR, oT, nR, nT = old_R[ref], old_t[ref], m.kf_R[ref], m.kf_t[ref]
-        c = c._replace(R=nR @ (oR.T @ c.R),
-                       p=nT + nR @ (oR.T @ (c.p - oT)),
-                       v=(nR @ oR.T) @ c.v)
-        return m, c
+        R, p, dR = trk.rebase_pose(m_old, m, c.last_kf_slot, c.R, c.p)
+        return m, c._replace(R=R, p=p, v=dR @ c.v)
 
     # ---- the step ----------------------------------------------------
     def __call__(self, m, c, lcc: LCCarry, rig, sample_idx=None):

@@ -28,9 +28,11 @@ The reference package runs the step as one jitted program under
 `lax.cond`/`lax.switch`; here each branch is a Python branch on a device
 scalar, which reads it back to the host (a sync per decision).
 
+With `loop_closer=` the host-policy `loop_closing.LoopCloser` runs on the
+newest keyframe whenever the application calls `maybe_close_loop`.
+
 Not ported yet, each raising NotImplementedError and queued in ROADMAP.md:
-the cross-map weld (`secondary_map`, `merge_kw`), host-policy loop closing
-(`loop_closer`, `maybe_close_loop`) and the sharded global BA
+the cross-map weld (`secondary_map`, `merge_kw`) and the sharded global BA
 (`run_global_ba(mesh=...)`).
 `frames_per_dispatch > 1` (the reference's chunking of frames into one
 dispatch for its transport) is left out and raises too.
@@ -767,10 +769,6 @@ class StreamingVITracker:
             raise NotImplementedError(_LATER.format(
                 "Queue 1 item 6: the cross-map weld, "
                 "streaming_lc.make_merge_step"))
-        if loop_closer is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 5: host-policy loop closing, "
-                "loop_closing.LoopCloser"))
         self.device = resolve_device(device)
         self.cfg = cfg
         self.noise = (noise or pre_mod.ImuNoise.from_sigmas(
@@ -802,6 +800,9 @@ class StreamingVITracker:
             self.lc_carry = streaming_lc.init_lc_carry(device=self.device)
         self._t_prev: float | None = None
         self._snap = None
+        # host-policy loop closing (`maybe_close_loop`)
+        self.loop_closer = loop_closer
+        self._last_lc_slot = -1
 
     def _imu_arrays(self, samples, t_now: float):
         """Pad host IMU samples into fixed [S,3]/[S,3]/[S] buffers covering
@@ -859,9 +860,39 @@ class StreamingVITracker:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _adopt(self, m2: ms.MapState) -> None:
+        """Take `m2` (this map's keyframes, moved) as the map, with the
+        live pose and velocity re-expressed through the reference keyframe
+        so tracking continues in the moved world."""
+        c = self.carry
+        R, p, dR = trk.rebase_pose(self.map, m2, c.last_kf_slot, c.R, c.p)
+        self.carry = c._replace(R=R, p=p, v=dR @ c.v)
+        self.map = m2
+        self._snap = None
+
     def maybe_close_loop(self) -> bool:
-        raise NotImplementedError(_LATER.format(
-            "Queue 1 item 5: host-policy loop closing, maybe_close_loop"))
+        """Loop detection and correction on the newest keyframe, once per
+        keyframe, with the carry's preintegration chain for the post-loop
+        FullInertialBA (reference: streaming_vi.py's `maybe_close_loop`).
+        Host policy and synchronizing: the application calls it at its own
+        cadence (the flagship example's `--lc-every`). On a correction the
+        live pose and velocity are re-expressed through the reference
+        keyframe. Returns whether a loop closed."""
+        if self.loop_closer is None:
+            return False
+        slot = int(self.map.n_kf) - 1
+        if slot < 1 or slot == self._last_lc_slot:
+            return False
+        self._last_lc_slot = slot
+        self._snap = None
+        m2, closed = self.loop_closer.on_keyframe(
+            self.map, slot, chain=self.carry.chain,
+            chain_valid=self.carry.chain_valid)
+        if closed:
+            self._adopt(m2)
+        else:
+            self.map = m2
+        return closed
 
     def run_global_ba(self, mesh=None, stages=(4, 6), cg_iters=16):
         """Whole-map FullInertialBA over the streamed map (reference: the
@@ -875,20 +906,12 @@ class StreamingVITracker:
             raise NotImplementedError(_LATER.format(
                 "Queue 1 item 10: run_global_ba(mesh=), parallel/ on "
                 "torch.distributed"))
-        c, m = self.carry, self.map
+        c = self.carry
         m2, chi = trk.global_inertial_ba_step(
-            m, c.chain.map(lambda x: x[1:]), c.chain_valid[1:],
+            self.map, c.chain.map(lambda x: x[1:]), c.chain_valid[1:],
             self.rig.kind, self.rig, stages=stages, cg_iters=cg_iters,
             obs_cap=self.cfg.obs_cap)
-        ref = torch.clamp(c.last_kf_slot, min=0).to(torch.int64)
-        R_old, t_old = m.kf_R[ref], m.kf_t[ref]
-        R_new, t_new = m2.kf_R[ref], m2.kf_t[ref]
-        R_rel = R_old.T @ c.R
-        t_rel = R_old.T @ (c.p - t_old)
-        self.carry = c._replace(R=R_new @ R_rel, p=t_new + R_new @ t_rel,
-                                v=R_new @ R_old.T @ c.v)
-        self.map = m2
-        self._snap = None
+        self._adopt(m2)
         return chi
 
     def snapshot(self) -> dict:

@@ -616,6 +616,18 @@ def relative_pose(m: ms.MapState, ref: int, R, t):
     return R_ref.T @ x[12:21].reshape(3, 3), R_ref.T @ (x[21:] - t_ref)
 
 
+def rebase_pose(old_m: ms.MapState, new_m: ms.MapState, ref, R, p):
+    """The live pose (R, p) re-expressed through keyframe `ref` after the
+    map moved from `old_m` to `new_m` (a loop correction, a global BA):
+    its pose relative to that keyframe is kept, so tracking continues in
+    the moved world. Returns (R', p', dR); dR @ v re-expresses a
+    world-frame velocity."""
+    ref = torch.clamp(torch.as_tensor(ref), min=0).to(torch.int64)
+    oR, ot = old_m.kf_R[ref], old_m.kf_t[ref]
+    nR, nt = new_m.kf_R[ref], new_m.kf_t[ref]
+    return nR @ (oR.T @ R), nt + nR @ (oR.T @ (p - ot)), nR @ oR.T
+
+
 def replay_trajectory(trajectory, m: ms.MapState):
     """(times, R [T,3,3], t [T,3]) of a host trajectory list of (time,
     map_id, ref_slot, R_rel, t_rel) replayed against the keyframe poses of
@@ -693,8 +705,8 @@ class TrackerConfig:
     kf_min_inliers_abs: int = 60       # ... or tracked below this count
     new_mp_cap: int = 256
     ba_window: int = 8
-    # window that settles the map after a loop closure; read only by the
-    # loop-closer arm, which is not ported yet
+    # window that settles the map after a loop closure (the loop-closer
+    # arm, `Tracker._close_loop`)
     gba_window: Optional[int] = 24
     init_min_matches: int = 80
     # LOST frames before the map is parked in the atlas for a fresh one
@@ -734,16 +746,13 @@ class Tracker:
         if atlas is not None:
             raise NotImplementedError(_LATER.format(
                 "Queue 1 item 6: multi-map, the atlas and its tracker arms"))
-        if loop_closer is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 5: host place recognition and "
-                "loop_closing.LoopCloser"))
         self.device = dev = resolve_device(device)
         self.rig = rig.to(dev)
         self.cfg = cfg
         self.dist = None if dist is None else torch.as_tensor(
             np.asarray(dist, np.float32)).to(dev)
-        self.loop_closer = None
+        # optional `loop_closing.LoopCloser`, called on each new keyframe
+        self.loop_closer = loop_closer
         self.atlas = None
         self.state = self.NOT_INITIALIZED
         self.map = ms.allocate(cfg.max_kf, cfg.orb.n_features, cfg.max_mp,
@@ -1057,5 +1066,19 @@ class Tracker:
         self.last_kf_slot = slot
         self.n_kf += 1
         self.ref_kf_inliers = max(n_in, 1)
+        if self.loop_closer is not None:
+            self._close_loop(slot)
         self.R = self.map.kf_R[slot]
         self.t = self.map.kf_t[slot]
+
+    def _close_loop(self, slot: int) -> bool:
+        """The loop closer on keyframe `slot`; after a closure a wide
+        window BA (`gba_window`) settles the welded map. Returns whether a
+        loop closed."""
+        cfg, rig = self.cfg, self.rig
+        self.map, closed = self.loop_closer.on_keyframe(self.map, slot)
+        if closed:
+            self.map, _ = local_ba_step(
+                self.map, slot, rig.kind, rig,
+                window=(cfg.gba_window or cfg.ba_window))
+        return closed

@@ -104,11 +104,13 @@ def _project(rig_np, cam, R_wb, t_wb, X):
     return uv, p_c[:, 2]
 
 
-def build_revisit():
-    """The staged revisit as numpy: (map dict, carry pieces, rig dict)."""
+def build_revisit(n_cams: int = C):
+    """The staged revisit as numpy: (map dict, carry pieces, rig dict), on
+    the first `n_cams` cameras of the rig (C: two)."""
     rng = np.random.default_rng(11)
     rig_full = scene.build_rig("kb8", int(W), int(H))
-    rig_np = {k: (v if k == "kind" else v[:C]) for k, v in rig_full.items()}
+    rig_np = {k: (v if k == "kind" else v[:n_cams])
+              for k, v in rig_full.items()}
 
     # true trajectory: a small closed circuit in the y-z plane
     ang = np.linspace(0.0, 2.0 * np.pi, 12, endpoint=False)
@@ -128,7 +130,7 @@ def build_revisit():
     desc_a = (rng.random((N_SET, 256)) > 0.5).astype(np.int8)
     desc_b = (rng.random((N_SET, 256)) > 0.5).astype(np.int8)
     # the second camera sees each point with 6 of its bits flipped
-    flip = np.zeros((C, N_SET, 256), bool)
+    flip = np.zeros((2, N_SET, 256), bool)
     for n in range(N_SET):
         flip[1, n, rng.choice(256, 6, replace=False)] = True
 
@@ -139,7 +141,7 @@ def build_revisit():
     R_est = np.where(drifted[:, None, None], D_R @ R_true, R_true)
     t_est = np.where(drifted[:, None], t_true @ D_R.T + D_t, t_true)
 
-    m = _as_dict(jms.allocate(K, CF, M))
+    m = _as_dict(jms.allocate(K, n_cams * F, M))
     # landmark ids: A 0..59 (first seen by KF 0), B 60..119 (KF 4),
     # A' 120..179 (KF 9: the same world points, drifted)
     sets = {"A": (0, X_a, desc_a, 0), "B": (60, X_b, desc_b, 4),
@@ -168,7 +170,7 @@ def build_revisit():
     for k, (name, n_obs) in plan.items():
         base, _, desc, _ = sets[name]
         X_true = X_a if name in ("A", "A2") else X_b
-        for c in range(C):
+        for c in range(n_cams):
             uv, depth = _project(rig_np, c, R_true[k], t_true[k],
                                  X_true[:n_obs])
             assert np.all(depth > 1.0) and np.all(uv > 4.0) \
@@ -179,7 +181,7 @@ def build_revisit():
                                            desc[:n_obs])
             m["kf_feat_valid"][k, sl] = True
             m["kf_obs"][k, sl] = base + np.arange(n_obs)
-        m["kf_cam"][k] = np.repeat(np.arange(C), F)
+        m["kf_cam"][k] = np.repeat(np.arange(n_cams), F)
         m["kf_bow"][k] = np.asarray(jbow.histogram(
             jnp.asarray(m["kf_desc"][k]), jnp.asarray(m["kf_feat_valid"][k])))
     m["kf_R"][:] = R_est
@@ -730,19 +732,25 @@ def lc_runs(staged):
     return _run_both(staged, staged.jm, staged.tm, LC_KW)
 
 
-@pytest.fixture(scope="module")
-def lc_runs_pending(staged):
-    """temporal=2, and keyframe 12 a second drifted revisit (bound to the
-    duplicated landmarks, its pose carrying the drift): the first call
-    verifies keyframe 0 and leaves the hypothesis pending, the second
-    recomposes it through keyframe 11's pose, confirms it and corrects."""
-    m = {k: v.copy() for k, v in staged.m_np.items()}
+def second_revisit(m_np):
+    """The staged map with keyframe 12 a second drifted revisit: bound to
+    the duplicated landmarks, its pose carrying the drift."""
+    m = {k: v.copy() for k, v in m_np.items()}
     D_R = _rot_z(DRIFT_YAW)
     m["kf_R"][12] = D_R @ m["kf_R"][12]
     m["kf_t"][12] = D_R @ m["kf_t"][12] + DRIFT_T
     m["kf_obs"][12] = np.where(m["kf_obs"][12] >= 0, m["kf_obs"][12] + 120,
                                -1)
-    m = {k: np.asarray(v, staged.m_np[k].dtype) for k, v in m.items()}
+    return {k: np.asarray(v, m_np[k].dtype) for k, v in m.items()}
+
+
+@pytest.fixture(scope="module")
+def lc_runs_pending(staged):
+    """temporal=2, and keyframe 12 a second drifted revisit
+    (`second_revisit`): the first call verifies keyframe 0 and leaves the
+    hypothesis pending, the second recomposes it through keyframe 11's
+    pose, confirms it and corrects."""
+    m = second_revisit(staged.m_np)
     return _run_both(staged, _jmap(m), convert.map_from_numpy(m, device="cpu"),
                      dict(LC_KW, temporal=2))
 
@@ -937,7 +945,7 @@ def test_tracker_with_device_lc(device_lc):
 @pytest.mark.parametrize("kw, item", [
     (dict(secondary_map=object()), "item 6"),
     (dict(merge_kw=dict()), "item 6"),
-    (dict(loop_closer=object()), "item 5")])
+    (dict(loop_closer=object(), merge_kw=dict()), "item 6")])
 def test_tracker_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _small_tracker(device_lc=True, **kw)

@@ -74,6 +74,7 @@ from openmavis_tpu.pipeline import multi_tracking as jmt
 from openmavis_tpu_torch import convert, scene
 from openmavis_tpu_torch.frontend import extractor as tex
 from openmavis_tpu_torch.imu import preintegration as tpre
+from openmavis_tpu_torch.pipeline import loop_closing as tlc
 from openmavis_tpu_torch.pipeline import multi_tracking as tmt
 from openmavis_tpu_torch.pipeline import tracking as ttrk
 
@@ -639,8 +640,8 @@ def test_integrate_trimmed_against_padded(stereo, span, offset):
 
 def test_entry_points(monkeypatch, stereo):
     """The tracker builds on the current CUDA device unless told the CPU,
-    and raises without a card; the atlas and the loop closer raise and
-    name their ROADMAP items."""
+    and raises without a card; the atlas raises and names its ROADMAP
+    item; a loop closer is taken."""
     jt, tt = stereo["trackers"]
     rig = tt.rig
     cfg = tt.cfg
@@ -652,8 +653,9 @@ def test_entry_points(monkeypatch, stereo):
         tmt.MultiTracker(rig, cfg)
     with pytest.raises(NotImplementedError, match="item 6"):
         tmt.MultiTracker(rig, cfg, atlas=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmt.MultiTracker(rig, cfg, loop_closer=object(), device="cpu")
+    lc = tlc.LoopCloser(None, cfg.max_kf, rig=rig, device="cpu")
+    assert tmt.MultiTracker(rig, cfg, loop_closer=lc,
+                            device="cpu").loop_closer is lc
 
 
 def test_localization_only_adds_no_keyframe(stereo):

@@ -17,7 +17,8 @@ def test_port_imports_without_jax():
         "for n in ('pipeline.streaming_lc', 'pipeline.loop_closing',\n"
         "          'solvers.sim3', 'solvers.pnp', 'optim.pose_graph',\n"
         "          'optim.sim3_refine', 'solvers.two_view',\n"
-        "          'frontend.depth'):\n"
+        "          'frontend.depth', 'slam_map.vocabulary',\n"
+        "          'slam_map.keyframe_db'):\n"
         "    assert 'openmavis_tpu_torch.' + n in names, n\n"
         "from openmavis_tpu_torch.pipeline import multi_tracking\n"
         "for n in ('MultiTracker', 'MultiTrackerConfig'):\n"
@@ -27,6 +28,9 @@ def test_port_imports_without_jax():
         "               (streaming, 'StreamingTracker'),\n"
         "               (streaming, 'StreamConfig')):\n"
         "    assert hasattr(mod, n), n\n"
+        "from openmavis_tpu_torch.pipeline import loop_closing\n"
+        "for n in ('LoopCloser', 'LoopConfig'):\n"
+        "    assert hasattr(loop_closing, n), n\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'openmavis_tpu' or m.startswith('openmavis_tpu.'))\n"

@@ -41,6 +41,7 @@ from openmavis_tpu.slam_map import map_state as jms
 from openmavis_tpu_torch import convert
 from openmavis_tpu_torch.frontend import extractor as tex
 from openmavis_tpu_torch.io import synthetic
+from openmavis_tpu_torch.pipeline import loop_closing as tlc
 from openmavis_tpu_torch.pipeline import streaming as tst
 from openmavis_tpu_torch.pipeline import tracking as ttrk
 from openmavis_tpu_torch.slam_map import map_state as tms
@@ -312,15 +313,16 @@ def test_record_ring_overflow():
 
 def test_entry_points_and_round_trip(monkeypatch, run):
     """The tracker and `init_carry` build on the current CUDA device unless
-    told the CPU and raise without a card; `loop_closer=` and
-    `maybe_close_loop` raise and name ROADMAP item 5; the carry
+    told the CPU and raise without a card; `maybe_close_loop` without a
+    loop closer, or before a second keyframe, does nothing; the carry
     round-trips through `convert` in INIT and LOST modes."""
     _, tt = run["trackers"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tt.maybe_close_loop()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tst.StreamingTracker(_trig(), _cfg(tst), loop_closer=object(),
-                             device="cpu")
+    assert tt.maybe_close_loop() is False
+    lc = tlc.LoopCloser(None, 8, rig=_trig(), device="cpu")
+    fresh = tst.StreamingTracker(_trig(), _cfg(tst), loop_closer=lc,
+                                 device="cpu")
+    assert fresh.loop_closer is lc and fresh.maybe_close_loop() is False
+    assert fresh._last_lc_slot == -1 and lc.n_loops == 0
     for i in (2, 14):
         _, c_np = run["states"][i]
         back = convert.stream_carry_to_numpy(

@@ -68,6 +68,7 @@ from openmavis_tpu.pipeline import tracking as jtrk
 from openmavis_tpu_torch import convert
 from openmavis_tpu_torch.frontend import extractor as tex
 from openmavis_tpu_torch.io import synthetic
+from openmavis_tpu_torch.pipeline import loop_closing as tlc
 from openmavis_tpu_torch.pipeline import tracking as ttrk
 
 
@@ -647,16 +648,17 @@ def test_rgbd_first_tracked_frame(rgbd):
 
 def test_entry_points(monkeypatch, mono):
     """The tracker builds on the current CUDA device unless told the CPU,
-    and raises without a card; the atlas and the loop closer raise and
-    name their ROADMAP items."""
+    and raises without a card; the atlas raises and names its ROADMAP
+    item; a loop closer is taken."""
     rig, cfg = _trig(), _cfg(ttrk)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrk.Tracker(rig, cfg)
     with pytest.raises(NotImplementedError, match="item 6"):
         ttrk.Tracker(rig, cfg, atlas=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttrk.Tracker(rig, cfg, loop_closer=object(), device="cpu")
+    lc = tlc.LoopCloser(None, cfg.max_kf, rig=rig, device="cpu")
+    assert ttrk.Tracker(rig, cfg, loop_closer=lc,
+                        device="cpu").loop_closer is lc
     assert ttrk.TrackerConfig().max_mp == 8192
     assert ttrk.TrackerConfig().max_kf == 64
 
