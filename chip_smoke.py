@@ -128,6 +128,32 @@ Phases (any failure raises; the exit code is then nonzero):
      ORB, 8,192 landmarks, local_map_window 6, 100 frames over 1.25
      orbits): the Sim3 graph and the visual GBA on the card. Gates: state
      OK at the end, >= 1 loop, ATE (Horn scale) < 0.8 m.
+ 14. drive path 12, "device_merge": two sessions welded on the device.
+     Session A (path 1's configuration, device loop closing) streams
+     frames 0-59 of path 1's scene; session B, a fresh tracker (seed 1)
+     with its own world origin, streams frames 60-159 with A's map as
+     `secondary_map` and `make_merge_step`'s defaults. Gates: B tracks
+     >= 90% of its 100 frames, exactly one weld, at a frame in the
+     reference package's range, `merge_kf_off` = A's keyframes, the
+     merged map holds more than A's + 2, B's trajectory in A's world
+     within 0.15 m without scale (the reference's value printed beside).
+     It prints the merge attempt, weld frame and welding BA ms;
+ 15. drive path 13, "multi_tracker_atlas": `MultiTracker` with an
+     `Atlas` and `LoopCloser(None, 64, rig=rig, inertial=True, ...)` (as
+     `System` builds IMU_MULTI) on 200 frames of path 2's orbit, frames
+     100-122 black: the map is parked after `max_lost_frames`, map 1
+     starts when the images return and is welded into map 0 when the
+     rig sees map 0's start again. Gates: 2 maps before the weld and 1
+     after, the weld at the reference's frame range, the preintegration
+     chains welded (the seam interval invalid), the IMU flag reset in
+     map 1 (the reference does not initialize it again within 200
+     frames), frames tracked and ATE over both maps within the
+     reference's band;
+ 16. drive path 14, "mono_atlas": `Tracker` with an `Atlas` and
+     `LoopCloser(None, 32, rig=rig, ...)` (as `System` builds MONOCULAR)
+     on tests/test_atlas_merge.py's scene: 24 frames, 5 black, the 24
+     again. Gates: the weld fires, one map at the end, every trajectory
+     entry finite, ATE (Horn scale) within the reference's band.
   Paths 7-9 also print the frame ms median / p90 / max from frame 10 on
   and the launches per kernel and shape, and must launch
   `projection_best2` at their map's shape and `hamming_best2` at
@@ -166,8 +192,9 @@ Run: python3 chip_smoke.py   (from the repository root, one GPU)
      python3 chip_smoke.py --paths LIST   drives only the named paths
      (comma-separated: flagship, recycle_blackout, mono_inertial_euroc,
      rgbd_inertial, multi_tracker, multi_tracker_mono, mono_tracker,
-     rgbd_tracker, mono_streaming, host_lc, mono_tracker_lc); it prints
-     no {"ok": ...} line
+     rgbd_tracker, mono_streaming, host_lc, mono_tracker_lc,
+     device_merge, multi_tracker_atlas, mono_atlas); it prints no
+     {"ok": ...} line
      python3 chip_smoke.py --out DIR   also writes each path's result
      line into DIR/<path>.json
 """
@@ -262,10 +289,49 @@ HOST_LC_MIN_SPARSE = 5
 N_FRAMES_MONO_LC = 100
 MONO_LC_W, MONO_LC_H = 512, 384
 MONO_LC_FEATURES = 512
+# path 12: session A streams path 1's frames 0-59, session B (seed 1)
+# frames 60-159 with A's map as its secondary map and make_merge_step's
+# defaults (a fresh session started on frame 64 of this scene tracks
+# badly in the reference package: scripts/reference_merge.py). The
+# reference at this configuration on the CPU (scripts/reference_merge.py
+# device_merge, B's seeds 1, 2, 3): A 60 / 60 tracked, 11 keyframes; B
+# 100 / 100, one weld at frame 127 with every seed, kf_off 11, 29
+# keyframes merged, 1 loop, B's ATE without scale 4.01 / 3.58 / 3.56 cm.
+# The weld frame is held to that frame widened by one keyframe interval
+# (kf_max_interval_s, 5 frames) each way: the weld fires on a keyframe
+MERGE_SPLIT = 60
+MERGE_KW = {}
+MERGE_REF = dict(weld_frames=(122, 132), kf_off=11, merged_n_kf=29,
+                 b_ate_noscale_m=0.0401)
+# path 13: path 2's orbit, 200 frames, 100-122 black (23 frames: LOST for
+# longer than max_lost_frames 20). The reference MultiTracker with an
+# Atlas and LoopCloser(None, 64, rig, inertial=True) on the CPU
+# (scripts/reference_merge.py multi_tracker_atlas): map 1 from frame 120,
+# the weld at frame 129 (kf_off 21), 177 / 200 tracked, one map at the
+# end, ATE (Horn scale) 0.218 m over both maps; its IMU flag resets in
+# map 1 and stays off to frame 199 (the next stage it would run, VIBA1,
+# waits for 5 s after map 1's first keyframe: frame 223). The weld frame
+# is held to the reference's widened by one keyframe interval each way,
+# and the ATE to the reference's and a third
+N_FRAMES_ATLAS = 200
+ATLAS_BLACKOUT = range(100, 123)
+ATLAS_REF = dict(spawn_frame=120, weld_frames=(124, 134), kf_off=21,
+                 frames_tracked=177, ate_rmse_m=0.218,
+                 ate_band_m=0.218 * 4 / 3, imu_initialized_at_end=False)
+# path 14: tests/test_atlas_merge.py's scene (512 x 384 pinhole, 512 x 4
+# ORB, 32 keyframes, max_lost_frames 3) with path 11's 8,192-landmark
+# slab: 24 frames of the orbit, 5 black, the 24 again. The reference
+# Tracker with an Atlas and LoopCloser(None, 32, rig) on the CPU
+# (scripts/reference_merge.py mono_atlas): map 1 from frame 28, the weld
+# at frame 31, 43 / 53 tracked, one map, ATE (Horn scale) 6.34 cm
+MONO_ATLAS_PASS, MONO_ATLAS_BLACK = 24, 5
+MONO_ATLAS_REF = dict(spawn_frame=28, weld_frame=31, frames_tracked=43,
+                      ate_rmse_m=0.0634, ate_band_m=0.0634 * 4 / 3)
 PATHS = ("flagship", "recycle_blackout", "mono_inertial_euroc",
          "rgbd_inertial", "multi_tracker", "multi_tracker_mono",
          "mono_tracker", "rgbd_tracker", "mono_streaming", "host_lc",
-         "mono_tracker_lc")
+         "mono_tracker_lc", "device_merge", "multi_tracker_atlas",
+         "mono_atlas")
 
 
 def gpu_line() -> str:
@@ -1089,13 +1155,15 @@ def wrap_stages(timer: StageTimer, tr) -> None:
 
 
 def make_tracker(torch, dev, n_frames: int, lc: bool, max_kf: int = 64,
-                 max_mp: int = 16384, host_lc: bool = False, **overrides):
+                 max_mp: int = 16384, host_lc: bool = False,
+                 tracker_kw: dict | None = None, **overrides):
     """The flagship rig's tracker on the card: the bench configuration
     (`scene.bench_config_kwargs`) with 512 features x 8 levels and, with
     `lc`, the bench's device loop-closing settings; with `host_lc`, the
     host-policy `LoopCloser` as the flagship example builds it
     (`LoopCloser(None, max_kf, rig=rig, inertial=True, img_w, img_h)`).
-    Returns (tracker, cfg)."""
+    `tracker_kw` goes to `StreamingVITracker` (seed, secondary_map,
+    merge_kw). Returns (tracker, cfg)."""
     from openmavis_tpu_torch import scene
     from openmavis_tpu_torch.frontend import extractor
     from openmavis_tpu_torch.imu import preintegration as pre_mod
@@ -1116,18 +1184,20 @@ def make_tracker(torch, dev, n_frames: int, lc: bool, max_kf: int = 64,
     closer = (loop_closing.LoopCloser(
         None, cfg.max_kf, rig=rig, inertial=True, img_w=cfg.img_w,
         img_h=cfg.img_h, device=dev) if host_lc else None)
-    tr = streaming_vi.StreamingVITracker(rig, cfg, noise, seed=0,
-                                         device=dev,
+    tkw = dict(seed=0)
+    tkw.update(tracker_kw or {})
+    tr = streaming_vi.StreamingVITracker(rig, cfg, noise, device=dev,
                                          device_lc=lc_kw if lc else False,
-                                         loop_closer=closer)
+                                         loop_closer=closer, **tkw)
     return tr, cfg
 
 
 def drive(torch, mc, tr, frames, batches, stages: bool = False,
-          on_frame=None, depths=None):
+          on_frame=None, depths=None, reset: bool = True):
     """Push every frame (and its depth maps, for a `use_depth` tracker)
-    through the tracker with the launch counts set to 0 just before and
-    read just after. Returns a dict: frame_ms, the
+    through the tracker with the launch counts set to 0 just before
+    (unless `reset` is False: a path driven in parts) and read just
+    after. Returns a dict: frame_ms, the
     frames on which the loop closer or the step ran something beside plain
     tracking (`lc_frames`, `step_frames`), the launch counts by (kernel,
     N, M, layout), and the stage timer."""
@@ -1136,7 +1206,8 @@ def drive(torch, mc, tr, frames, batches, stages: bool = False,
         wrap_stages(timer, tr)
     frame_ms, lc_frames, step_frames = [], [], []
     torch.cuda.synchronize()
-    mc.reset_launch_counts()
+    if reset:
+        mc.reset_launch_counts()
     try:
         for i in range(len(frames)):
             t, b = batches[i]
@@ -1856,11 +1927,11 @@ def multi_content(torch, tr, run: dict, t_wb, card: str,
 
 
 def make_multi_tracker(torch, dev, rig_np, noise_sigmas, dist=None,
-                       **cfg_kw):
+                       tracker_kw: dict | None = None, **cfg_kw):
     """`MultiTracker` on the card as `System` builds it for IMU_MULTI and
     IMU_MONOCULAR: the bench's values where the config has the field
     (`scene.bench_config_kwargs`), the rest at their defaults; no atlas,
-    no loop closer."""
+    no loop closer unless `tracker_kw` gives them."""
     from openmavis_tpu_torch import convert, scene
     from openmavis_tpu_torch.imu import preintegration as pre_mod
     from openmavis_tpu_torch.pipeline import multi_tracking as mt
@@ -1874,7 +1945,8 @@ def make_multi_tracker(torch, dev, rig_np, noise_sigmas, dist=None,
     tr = mt.MultiTracker(
         convert.rig_from_numpy(rig_np, device=dev), cfg, noise, seed=0,
         device=dev,
-        dist=None if dist is None else np.asarray(dist, np.float32)[None])
+        dist=None if dist is None else np.asarray(dist, np.float32)[None],
+        **(tracker_kw or {}))
     return tr, cfg
 
 
@@ -2575,6 +2647,312 @@ def phase_mono_tracker_lc(torch, dev, mc, card: str, stages: bool = False):
     return counts
 
 
+def phase_device_merge(torch, dev, mc, card: str, stages: bool = False):
+    """Path 12: two sessions of path 1's configuration welded on the
+    device. Session A streams frames 0-59 of path 1's scene; session B, a
+    fresh tracker (seed 1) with its own world origin, streams frames
+    60-159 with A's map as `secondary_map` and `make_merge_step`'s
+    defaults, and welds itself into A's map when it comes back to A's
+    start (the orbit closes near frame 128). The launch counts are set to
+    0 before A and read after B. A timer around `welding_ba_step` gives
+    the welding BA's time."""
+    from openmavis_tpu_torch import scene
+    from openmavis_tpu_torch.io import evaluation
+    from openmavis_tpu_torch.pipeline import tracking
+
+    n, split = N_FRAMES, MERGE_SPLIT
+    t0 = time.perf_counter()
+    _, frames, _, t_wb, batches = scene.make_sequence(
+        n, orbit_frac=1.25, kind_name="kb8")
+    print("device_merge scene rendered in %.1f s"
+          % (time.perf_counter() - t0))
+    tra, cfg = make_tracker(torch, dev, n, lc=True)
+    run_a = drive(torch, mc, tra, frames[:split], batches[:split])
+    snap_a = tra.snapshot()
+    n_kf_a = int(snap_a["n_kf"])
+    trb, _ = make_tracker(torch, dev, n, lc=True, tracker_kw=dict(
+        seed=1, secondary_map=tra.map, merge_kw=MERGE_KW))
+    timer = StageTimer(torch)
+    timer.wrap(tracking, "welding_ba_step")
+    try:
+        run_b = drive(torch, mc, trb, frames[split:], batches[split:],
+                      stages, reset=False)
+    finally:
+        timer.restore()
+    counts = run_b["counts"]
+    snap = trb.snapshot()
+    t_b, _, p_b = trb.get_trajectory()
+    ok_b = snap["ok"][:len(t_b)]
+    res_b = evaluation.ate_rmse(t_b[ok_b], p_b[ok_b],
+                                np.arange(split, n) / scene.FPS_IN,
+                                t_wb[split:])
+    # both sessions, each replayed against its final map, in A's world
+    t_a, _, p_a = tra.get_trajectory()
+    ok_a = snap_a["ok"][:len(t_a)]
+    joint = evaluation.ate_rmse(
+        np.concatenate([t_a[ok_a], t_b[ok_b]]),
+        np.concatenate([p_a[ok_a], p_b[ok_b]]),
+        np.arange(n) / scene.FPS_IN, t_wb)
+
+    def frames_with(event):
+        return [f for f in run_b["lc_frames"] if event in f["events"]]
+
+    welds = frames_with("weld")
+    m = trb.map
+    out = {
+        "path": "device_merge", "merge_kw": MERGE_KW,
+        "a_frames": split, "a_tracked": int(ok_a.sum()),
+        "a_n_keyframes": n_kf_a,
+        "b_frames": n - split, "b_tracked": int(ok_b.sum()),
+        "n_merges": int(snap["n_merges"]),
+        "merge_kf_off": int(snap["merge_kf_off"]),
+        "merged_n_keyframes": int(snap["n_kf"]),
+        "loop_closures": int(snap["n_loops"]),
+        "weld_frames": [split + f["frame"] for f in welds],
+        "merge_attempt_ms": [f["ms"] for f in frames_with("merge_attempt")],
+        "weld_frame_ms": [f["ms"] for f in welds],
+        "welding_ba_ms": timer.table().get("welding_ba_step"),
+        "b_ate_noscale_m": float(res_b["rmse_noscale"]),
+        "b_ate_m": float(res_b["rmse"]),
+        "joint_ate_noscale_m": float(joint["rmse_noscale"]),
+        "reference": MERGE_REF,
+        "frame_ms_median_b": float(np.median(run_b["frame_ms"][10:])),
+        "map_finite": bool(torch.isfinite(m.kf_R).all()
+                           & torch.isfinite(m.kf_t).all()
+                           & torch.isfinite(m.mp_pos).all()),
+        "trajectory_finite": bool(np.isfinite(p_b).all()),
+        **launch_fields(counts), "card": card}
+    emit(out)
+    print("device_merge: A %d / %d tracked, %d keyframes; B %d / %d "
+          "tracked, welds at frames %s (kf_off %d), merged %d keyframes, "
+          "loops %d; B's ATE without scale %.4f m (the reference %s); both "
+          "sessions %.4f m; merge attempt ms %s, weld frame ms %s, welding "
+          "BA %s" % (out["a_tracked"], split, n_kf_a, out["b_tracked"],
+                     n - split, out["weld_frames"], out["merge_kf_off"],
+                     out["merged_n_keyframes"], out["loop_closures"],
+                     out["b_ate_noscale_m"], MERGE_REF["b_ate_noscale_m"],
+                     out["joint_ate_noscale_m"],
+                     [round(x, 1) for x in out["merge_attempt_ms"]],
+                     [round(x, 1) for x in out["weld_frame_ms"]],
+                     out["welding_ba_ms"]))
+    lo, hi = MERGE_REF["weld_frames"]
+    checks = [
+        (out["b_tracked"] >= 0.9 * (n - split),
+         "B tracks >= 90%% of its %d frames" % (n - split)),
+        (out["n_merges"] == 1 and len(welds) == 1, "exactly one weld"),
+        (all(lo <= f <= hi for f in out["weld_frames"]),
+         "the weld at a frame in the reference's range %d-%d" % (lo, hi)),
+        (out["merge_kf_off"] == n_kf_a, "merge_kf_off == A's n_kf"),
+        (out["merged_n_keyframes"] > n_kf_a + 2, "merged n_kf > A's + 2"),
+        (out["b_ate_noscale_m"] <= 0.15,
+         "B's post-weld ATE without scale <= 0.15 m"),
+        (out["map_finite"] and out["trajectory_finite"], "finite")]
+    gate("device_merge path", checks)
+    return counts
+
+
+def phase_multi_tracker_atlas(torch, dev, mc, card: str,
+                              stages: bool = False):
+    """Path 13: the rig tracker as `System` builds it for IMU_MULTI, with
+    an Atlas and the host-policy loop closer (`MultiTracker(...,
+    atlas=Atlas(), loop_closer=LoopCloser(None, 64, rig=rig,
+    inertial=True, img_w, img_h))`), on path 2's orbit with frames
+    ATLAS_BLACKOUT black: LOST for longer than `max_lost_frames` (20),
+    the tracker parks map 0, starts map 1 when the images return, and
+    welds map 1 into map 0 when it sees map 0's start again."""
+    from openmavis_tpu_torch import convert, scene
+    from openmavis_tpu_torch.frontend import extractor
+    from openmavis_tpu_torch.pipeline import loop_closing
+    from openmavis_tpu_torch.slam_map import atlas as atlas_mod
+
+    n = N_FRAMES_ATLAS
+    t0 = time.perf_counter()
+    rig_np, frames, _, t_wb, batches = scene.make_sequence(
+        n, orbit_frac=1.25 * (n - 1) / (N_FRAMES - 1), kind_name="kb8")
+    for i in ATLAS_BLACKOUT:
+        frames[i] = 0
+    print("multi_tracker_atlas scene (%d frames) rendered in %.1f s"
+          % (n, time.perf_counter() - t0))
+    atlas = atlas_mod.Atlas()
+    lc = loop_closing.LoopCloser(
+        None, scene.bench_config_kwargs()["max_kf"],
+        rig=convert.rig_from_numpy(rig_np, device=dev), inertial=True,
+        img_w=scene.W, img_h=scene.H, device=dev)
+    tr, cfg = make_multi_tracker(
+        torch, dev, rig_np, scene.NOISE_SIGMAS,
+        orb=extractor.OrbConfig(n_features=N_FEATURES, n_levels=8),
+        tracker_kw=dict(atlas=atlas, loop_closer=lc))
+    events, welds = [], []
+    remap = tr._remap_after_merge
+
+    def probe(old_id, new_id, kf_off, s=1.0):
+        remap(old_id, new_id, kf_off, s)
+        welds.append(dict(kf_off=kf_off, s=s, n_kf=int(tr.map.n_kf),
+                          len_kf_pre=len(tr.kf_pre),
+                          seam_invalid=tr.kf_pre[kf_off] is None,
+                          parked=sorted(tr._parked_pre)))
+
+    tr._remap_after_merge = probe
+    last = {}
+
+    def on_frame(i, oks):
+        now = dict(maps=atlas.n_maps(), map_id=tr.map_id,
+                   merges=lc.n_merges, imu=bool(tr.imu_initialized))
+        if now != last:
+            events.append(dict(frame=i, n_kf=tr.n_kf, loops=lc.n_loops,
+                               **now))
+            last.clear()
+            last.update(now)
+
+    timer = StageTimer(torch)
+    timer.wrap(lc, "detect_merge")
+    try:
+        run = drive_multi(torch, mc, tr, frames, batches, stages, on_frame)
+    finally:
+        timer.restore()
+        del tr._remap_after_merge
+    counts = run["counts"]
+    out = multi_content(torch, tr, run, t_wb, card, stages)
+    maps_seen = [e["maps"] for e in events]
+    spawn = next((e for e in events if e["maps"] == 2), None)
+    weld = next((e for e in events if e["merges"] == 1), None)
+    imu_map1 = any(e["imu"] and e["map_id"] == 1 for e in events)
+    imu_reset = spawn is not None and not spawn["imu"]
+    out.update(path="multi_tracker_atlas", loop_closing=True,
+               blackout=[ATLAS_BLACKOUT.start, ATLAS_BLACKOUT.stop - 1],
+               events=events, welds=welds, n_maps=atlas.n_maps(),
+               n_merges=lc.n_merges, loop_closures=lc.n_loops,
+               imu_reinitialized_in_map1=imu_map1,
+               detect_merge_ms=timer.table().get("detect_merge"),
+               reference=ATLAS_REF)
+    emit(out)
+    print("multi_tracker_atlas: %d of %d tracked; map 1 from frame %s, the "
+          "weld at frame %s (%s); %d maps at the end, loops %d; IMU "
+          "initialized in map 1 before the weld: %s, at the end: %s; ATE "
+          "(Horn scale) %.4f m, without scale %.4f m, horn_scale %.4f (the "
+          "reference %s); detect_merge %s"
+          % (out["frames_tracked"], n, spawn and spawn["frame"],
+             weld and weld["frame"], welds, atlas.n_maps(), lc.n_loops,
+             imu_map1, out["imu_initialized"], out["ate_rmse_m"],
+             out["ate_rmse_noscale_m"], out["horn_scale"], ATLAS_REF,
+             out["detect_merge_ms"]))
+    lo, hi = ATLAS_REF["weld_frames"]
+    checks = [
+        (spawn is not None and 2 in maps_seen and atlas.n_maps() == 1,
+         "2 maps before the weld and 1 after"),
+        (len(welds) == 1 and weld is not None and lo <= weld["frame"] <= hi,
+         "one weld, at a frame in the reference's range %d-%d" % (lo, hi)),
+        (len(welds) == 1 and welds[0]["len_kf_pre"] >= welds[0]["n_kf"]
+         and welds[0]["seam_invalid"] and welds[0]["parked"] == [],
+         "the chains welded: kf_pre covers the merged n_kf, the seam "
+         "interval invalid, nothing left parked"),
+        (imu_reset and out["imu_initialized"]
+         == ATLAS_REF["imu_initialized_at_end"],
+         "the IMU flag reset in map 1 and, as the reference's, still off "
+         "at the end"),
+        (out["frames_tracked"] >= ATLAS_REF["frames_tracked"] - 4,
+         "frames tracked >= the reference's %d - 4"
+         % ATLAS_REF["frames_tracked"]),
+        (out["ate_rmse_m"] <= ATLAS_REF["ate_band_m"],
+         "ATE (Horn scale) over both maps <= %.3f m"
+         % ATLAS_REF["ate_band_m"]),
+        (out["map_finite"] and out["trajectory_finite"], "finite")]
+    gate("multi_tracker_atlas path", checks)
+    return counts
+
+
+def phase_mono_atlas(torch, dev, mc, card: str, stages: bool = False):
+    """Path 14: the one-camera `Tracker` as `System` builds it for
+    MONOCULAR, with an Atlas and a loop closer
+    (`LoopCloser(None, 32, rig=rig, img_w, img_h)`), on
+    tests/test_atlas_merge.py's scene: 24 frames of the orbit, 5 black
+    frames (LOST for longer than `max_lost_frames` 3: a new map), then
+    the 24 frames again, where the second map is welded into the first
+    by a Sim3 of free scale."""
+    from openmavis_tpu_torch import convert
+    from openmavis_tpu_torch.frontend import extractor
+    from openmavis_tpu_torch.geometry import cameras
+    from openmavis_tpu_torch.io import evaluation, synthetic
+    from openmavis_tpu_torch.pipeline import loop_closing, tracking
+    from openmavis_tpu_torch.slam_map import atlas as atlas_mod
+
+    w, h, f = MONO_LC_W, MONO_LC_H, MONO_LC_FEATURES
+    pin = np.array([380.0, 380.0, w / 2, h / 2, 0, 0, 0, 0], np.float32)
+    world = synthetic.BlobWorld.create(seed=3, n=3000)
+    R_wc, t_wc = synthetic.orbit_trajectory(MONO_ATLAS_PASS, radius=6.0,
+                                            frac=0.2)
+    orbit = synthetic.render_sequence(world, cameras.PINHOLE, pin, R_wc,
+                                      t_wc, w, h)
+    seq = (list(orbit) + [np.zeros_like(orbit[0])] * MONO_ATLAS_BLACK
+           + list(orbit))
+    gt = np.concatenate([t_wc, np.zeros((MONO_ATLAS_BLACK, 3)), t_wc])
+    n = len(seq)
+    rig = convert.rig_from_numpy(dict(
+        kind=cameras.PINHOLE, params=pin[None], R_cb=np.eye(3)[None],
+        t_cb=np.zeros((1, 3))), device=dev)
+    cfg = tracking.TrackerConfig(
+        img_w=w, img_h=h, orb=extractor.OrbConfig(n_features=f, n_levels=4),
+        max_kf=32, max_mp=TRACKER_MAX_MP, max_lost_frames=3)
+    atlas = atlas_mod.Atlas()
+    lc = loop_closing.LoopCloser(None, cfg.max_kf, rig=rig, img_w=w,
+                                 img_h=h, device=dev)
+    tr = tracking.Tracker(rig, cfg, seed=0, loop_closer=lc, atlas=atlas,
+                          device=dev)
+    events, oks, frame_ms = [], [], []
+    last = {}
+    torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    for i, img in enumerate(seq):
+        t1 = time.perf_counter()
+        oks.append(bool(tr.process_frame(img, time=i / 20.0)))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        now = dict(maps=atlas.n_maps(), merges=lc.n_merges)
+        if now != last:
+            events.append(dict(frame=i, n_kf=tr.n_kf, map_id=tr.map_id,
+                               state=tr.state, **now))
+            last = now
+    counts = dict(mc.launches_by_shape)
+    t_est, R_est, p_est = tr.get_trajectory()
+    ok = np.asarray(oks)
+    res = evaluation.ate_rmse(t_est[ok], p_est[ok], np.arange(n) / 20.0,
+                              gt)
+    weld = next((e for e in events if e["merges"] == 1), None)
+    m = tr.map
+    out = {
+        "path": "mono_atlas", "frames": n, "frames_tracked": int(ok.sum()),
+        "events": events, "n_maps": atlas.n_maps(),
+        "n_merges": lc.n_merges, "loop_closures": lc.n_loops,
+        "n_keyframes": int(tr.n_kf), "weld_scale": (
+            lc.last_weld[0] if lc.last_weld is not None else None),
+        "trajectory_entries": len(tr.trajectory),
+        "trajectory_finite": bool(np.isfinite(p_est).all()
+                                  and np.isfinite(R_est).all()),
+        "ate_rmse_m": float(res["rmse"]), "horn_scale": float(res["scale"]),
+        "reference": MONO_ATLAS_REF,
+        "frame_ms_median": float(np.median(frame_ms)),
+        "frame_ms_max": float(np.max(frame_ms)),
+        "map_finite": bool(torch.isfinite(m.kf_R).all()
+                           & torch.isfinite(m.kf_t).all()
+                           & torch.isfinite(m.mp_pos).all()),
+        **launch_fields(counts), "card": card}
+    emit(out)
+    print("mono_atlas: %d of %d tracked; events %s; weld scale %s; ATE "
+          "(Horn scale) %.4f m, horn_scale %.3f (the reference %s)"
+          % (out["frames_tracked"], n, events, out["weld_scale"],
+             out["ate_rmse_m"], out["horn_scale"], MONO_ATLAS_REF))
+    checks = [
+        (weld is not None and lc.n_merges == 1, "the weld fired"),
+        (atlas.n_maps() == 1, "the atlas ends with one map"),
+        (len(tr.trajectory) == n and out["trajectory_finite"],
+         "every trajectory entry resolves and is finite"),
+        (out["ate_rmse_m"] <= MONO_ATLAS_REF["ate_band_m"],
+         "ATE (Horn scale) <= %.3f m" % MONO_ATLAS_REF["ate_band_m"]),
+        (out["map_finite"], "finite map")]
+    gate("mono_atlas path", checks)
+    return counts
+
+
 def phase_long(torch, dev, mc, card: str, out_dir: str) -> dict:
     """The reference package's long-run configuration on the port. No
     gates: a measurement. Progress goes to `out_dir`/long_progress.jsonl
@@ -2695,6 +3073,12 @@ def main() -> int:
         if "mono_tracker_lc" in chosen:
             paths["mono_tracker_lc"] = phase_mono_tracker_lc(
                 torch, dev, mc, card, stages=stages)
+        for path, phase in (("device_merge", phase_device_merge),
+                            ("multi_tracker_atlas",
+                             phase_multi_tracker_atlas),
+                            ("mono_atlas", phase_mono_atlas)):
+            if path in chosen:
+                paths[path] = phase(torch, dev, mc, card, stages=stages)
     for k in kernels:
         n, m = map(int, k["shape"].split("x"))
         key = (k["name"], n, m, k["mask_layout"])

@@ -17,14 +17,16 @@ frontend   Image pyramid, FAST + oriented-BRIEF extraction, Hamming matching
            frontend/matcher_cuda.py, its source in csrc/), depth priors.
 solvers    RANSAC two-view (E/H), PnP and Sim3 solvers.
 optim      Levenberg-Marquardt, Schur-complement BA, inertial factors.
-slam_map   Fixed-capacity map slabs, LSH bag-of-words signatures, the
-           binary vocabulary tree and the keyframe database (dense and
-           word-sparse).
-pipeline   The streaming VI tracker (multi-camera, mono, RGB-D) and its
-           device loop closer; the host-policy rig tracker MultiTracker;
-           the one-camera visual trackers tracking.Tracker (MONOCULAR,
-           RGB-D) and streaming.StreamingTracker; the host-policy
-           loop_closing.LoopCloser all four take as `loop_closer=`.
+slam_map   Fixed-capacity map slabs, the multi-map Atlas with its welds,
+           LSH bag-of-words signatures, the binary vocabulary tree and
+           the keyframe database (dense and word-sparse).
+pipeline   The streaming VI tracker (multi-camera, mono, RGB-D) with its
+           device loop closer and cross-map weld; the host-policy rig
+           tracker MultiTracker; the one-camera visual trackers
+           tracking.Tracker (MONOCULAR, RGB-D) and
+           streaming.StreamingTracker; the host-policy
+           loop_closing.LoopCloser (with merge detection) all four take
+           as `loop_closer=`; the Atlas arms of MultiTracker and Tracker.
 io         Synthetic scenes and trajectory evaluation (numpy).
 """
 

@@ -6,7 +6,8 @@ nested NamedTuples as nested dicts; the host-policy trackers'
 attributes as `multi_tracker_state_to_numpy` and `tracker_state_to_numpy`
 lay them out, the streaming trackers' host state as
 `streaming_state_to_numpy`, the loop closer's as
-`loop_closer_state_to_numpy`). `*_from_numpy` builds the port's
+`loop_closer_state_to_numpy`, an Atlas as `atlas_to_numpy`).
+`*_from_numpy` builds the port's
 tensors on a given device (the current CUDA device when none is given)
 and `*_to_numpy` goes back. Every field takes
 the dtype the port allocates it with: int32 indices, int8 descriptor
@@ -29,6 +30,7 @@ from .pipeline import streaming_lc as slc
 from .pipeline import streaming_vi as svi
 from .pipeline import tracking as trk
 from .pipeline.streaming import TrajRing
+from .slam_map import atlas as atlas_mod
 from .slam_map import keyframe_db as kdb
 from .slam_map import map_state as ms
 from .slam_map import vocabulary as voc
@@ -117,6 +119,19 @@ def map_to_numpy(m: ms.MapState) -> dict:
     return {k: _np(v) for k, v in m._asdict().items()}
 
 
+def atlas_to_numpy(atlas: atlas_mod.Atlas) -> dict:
+    """maps (a list of map dicts) and current (the tracked map's index)."""
+    return dict(maps=[map_to_numpy(m) for m in atlas.maps],
+                current=int(atlas.current))
+
+
+def atlas_from_numpy(d: dict, device=None) -> atlas_mod.Atlas:
+    device = resolve_device(device)
+    return atlas_mod.Atlas(maps=[map_from_numpy(m, device)
+                                 for m in d["maps"]],
+                           current=int(d["current"]), device=device)
+
+
 def _seed_from_key(gen: torch.Generator, key) -> torch.Generator:
     """Seed `gen` from a JAX PRNG key [2] uint32 as (key[0] << 32) |
     key[1] (so PRNGKey(s) seeds s); the two streams differ by
@@ -167,8 +182,16 @@ def lc_carry_to_numpy(lcc: slc.LCCarry) -> dict:
 _MT_HOST = ("state", "n_kf", "last_kf_slot", "last_kf_time", "last_time",
             "first_kf_time", "ref_kf_inliers", "viba_stage",
             "imu_initialized", "_reentry_boost", "lost_frames",
-            "_init_time")
+            "_init_time", "map_id")
 _MT_TENSORS = ("R", "t", "v", "bias", "vel_R", "vel_t")
+
+
+def _pre_list_to_numpy(pres) -> list:
+    return [None if p is None else pre_to_numpy(p) for p in pres]
+
+
+def _pre_list_from_numpy(pres, device) -> list:
+    return [None if p is None else pre_from_numpy(p, device) for p in pres]
 
 
 def _imu_queue(q) -> list:
@@ -180,14 +203,16 @@ def multi_tracker_state_to_numpy(tr: mt.MultiTracker) -> dict:
     """A port `MultiTracker`'s state as host values: the map as a numpy
     dict, the pose, velocity, bias and motion model as numpy arrays, the
     counters and times as Python values, `kf_pre` as a list of numpy
-    dicts or None, the two IMU queues, the trajectory list, the two-view
-    reference bank (numpy dict or None) and `key`, the generator's seed as
-    a [2] uint32 PRNG key (see `carry_from_numpy`)."""
+    dicts or None, `_parked_pre` (the parked maps' chains: a dict by map
+    index of such lists), the two IMU queues, the trajectory list, the
+    two-view reference bank (numpy dict or None) and `key`, the
+    generator's seed as a [2] uint32 PRNG key (see `carry_from_numpy`)."""
     d = {k: getattr(tr, k) for k in _MT_HOST}
     d.update({k: _np(getattr(tr, k)) for k in _MT_TENSORS})
     d["map"] = map_to_numpy(tr.map)
-    d["kf_pre"] = [None if p is None else pre_to_numpy(p)
-                   for p in tr.kf_pre]
+    d["kf_pre"] = _pre_list_to_numpy(tr.kf_pre)
+    d["_parked_pre"] = {mid: _pre_list_to_numpy(pres)
+                        for mid, pres in tr._parked_pre.items()}
     d["_imu_frame"] = _imu_queue(tr._imu_frame)
     d["_imu_kf"] = _imu_queue(tr._imu_kf)
     d["trajectory"] = [(tm, mid, ref, np.array(R), np.array(t))
@@ -202,15 +227,20 @@ def multi_tracker_state_from_numpy(d: dict, tr: mt.MultiTracker) -> None:
     """Set the state `d` (laid out as `multi_tracker_state_to_numpy` does;
     from the reference package: its `MultiTracker`'s attributes of the
     same names as numpy) on the port tracker `tr`, on `tr.device`. The
-    PRNG key, where given, seeds `tr.gen` as `carry_from_numpy` does."""
+    PRNG key, where given, seeds `tr.gen` as `carry_from_numpy` does;
+    `_parked_pre`, where given, replaces the parked chains. The map
+    replaces the atlas's entry `map_id` too when `tr` has an atlas."""
     dev = tr.device
     for k in _MT_HOST:
         setattr(tr, k, d[k])
     for k in _MT_TENSORS:
         setattr(tr, k, _t(d[k], torch.float32, dev))
     tr.map = map_from_numpy(d["map"], dev)
-    tr.kf_pre = [None if p is None else pre_from_numpy(p, dev)
-                 for p in d["kf_pre"]]
+    tr._sync_atlas()
+    tr.kf_pre = _pre_list_from_numpy(d["kf_pre"], dev)
+    if "_parked_pre" in d:
+        tr._parked_pre = {int(mid): _pre_list_from_numpy(pres, dev)
+                          for mid, pres in d["_parked_pre"].items()}
     tr._imu_frame = _imu_queue(d["_imu_frame"])
     tr._imu_kf = _imu_queue(d["_imu_kf"])
     tr.trajectory = [(float(tm), int(mid), int(ref),
@@ -287,13 +317,15 @@ def tracker_state_from_numpy(d: dict, tr: trk.Tracker) -> None:
     """Set the state `d` (laid out as `tracker_state_to_numpy` does; from
     the reference package: its `Tracker`'s attributes of the same names as
     numpy) on the port tracker `tr`, on `tr.device`. The PRNG key, where
-    given, seeds `tr.gen`."""
+    given, seeds `tr.gen`. The map replaces the atlas's entry `map_id`
+    too when `tr` has an atlas."""
     dev = tr.device
     for k in _TR_HOST:
         setattr(tr, k, d[k])
     for k in _TR_TENSORS:
         setattr(tr, k, _t(d[k], torch.float32, dev))
     tr.map = map_from_numpy(d["map"], dev)
+    tr._sync_atlas()
     tr._init_feats = (None if d["_init_feats"] is None
                       else features_from_numpy(d["_init_feats"], dev))
     tr.trajectory = [(float(tm), int(mid), int(ref),

@@ -15,13 +15,17 @@ essential-graph correction (4-DoF for inertial maps, Sim3 otherwise) and
 the post-loop whole-map BA. Its accept / reject policy reads device
 values on the host, as the reference package's does.
 
+Merge detection (`LoopCloser.detect_merge`, and `streaming_lc`'s device
+weld) runs the same pieces across two maps of an `Atlas`:
+`cross_place_scores`, `_matched_pairs_cross` and
+`group_projection_score_cross`.
+
 Every descriptor search here goes through `matcher.match_nn` or
 `matcher.match_projection`, i.e. through the hand-written kernels on CUDA
 tensors: two whole keyframes against each other ([C F, C F] mask, both
 directions), and the landmark slab against each camera band of the
-current keyframe.
-
-Not ported yet: `detect_merge` and its cross-map pieces (ROADMAP.md).
+current keyframe. `cross_place_scores` stays a plain Hamming product,
+taken a few keyframes at a time.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..frontend.fast import topk_stable
 from ..geometry import cameras, lie
 from ..ops import scatter_max, set_rows
 from ..optim import pose_graph, sim3_refine
+from ..slam_map import atlas as atlas_mod
 from ..slam_map import keyframe_db as kdb
 from ..slam_map import map_state as ms
 from ..slam_map import vocabulary as voc
@@ -133,6 +138,40 @@ def _tables(m: ms.MapState):
             m.kf_feat_valid, m.kf_obs, m.mp_pos, m.mp_valid)
 
 
+def _matched_pairs_cross(m_a: ms.MapState, slot_a, m_b: ms.MapState,
+                         slot_b) -> MatchedPairs:
+    """Descriptor-NN pairs between keyframe `slot_a` of map `m_a` and
+    `slot_b` of another map `m_b` (merge candidates in another Atlas map,
+    src/LoopClosing.cc:176-204)."""
+    return _pairs_from_tables(_tables(m_a), _tables(m_b), slot_a, slot_b)
+
+
+def cross_place_scores(desc_q, valid_q, m_b: ms.MapState,
+                       kf_chunk: int = 8) -> torch.Tensor:
+    """Place-recognition scores of a query descriptor bank [N, 256]
+    against every keyframe of ANOTHER map: per keyframe, the number of
+    valid query rows whose nearest valid feature of that keyframe lies
+    under TH_LOW. Returns [K] int32.
+
+    The [N, K F] distance table is built `kf_chunk` keyframes at a time
+    (the whole one is 1 GB of int32 at the flagship's 2,048 x 131,072);
+    every keyframe's count is the same as from the whole table."""
+    K, F = m_b.kf_obs.shape
+    t_valid = m_b.kf_feat_valid & m_b.kf_valid[:, None]
+    out = []
+    for k0 in range(0, K, kf_chunk):
+        k1 = min(k0 + kf_chunk, K)
+        dist = matcher.hamming_matrix(
+            desc_q, m_b.kf_desc[k0:k1].reshape(-1, 256)).reshape(
+            -1, k1 - k0, F)
+        dist = torch.where(t_valid[None, k0:k1] & valid_q[:, None, None],
+                           dist, 1 << 20)
+        best = torch.amin(dist, dim=2)
+        out.append(torch.sum(best < matcher.TH_LOW, dim=0,
+                             dtype=torch.int32))
+    return torch.cat(out)
+
+
 def pairs_by_projection(m: ms.MapState, slot, cand, rig_kind: int,
                         n_cams: int, rig, img_w: float, img_h: float,
                         radius: float = 40.0) -> MatchedPairs:
@@ -213,23 +252,42 @@ def group_projection_score(m: ms.MapState, slot, cand, cov_row, s, R, t,
     """Count matches when projecting the candidate's covisible-group
     landmarks into the current keyframe through the hypothesized Sim3
     (the projection-verification step of DetectCommonRegionsFromBoW,
-    src/LoopClosing.cc:944-994).
+    src/LoopClosing.cc:944-994): `group_projection_score_cross` with both
+    keyframes in map `m`.
 
     s, R, t: body(slot) -> body(cand) Sim3 (p_cand = s R p_slot + t).
     Returns n_matches ([] int32)."""
-    K, CF = m.kf_obs.shape
-    F = CF // n_cams
-    M = m.mp_pos.shape[0]
-    dev = m.kf_obs.device
-    # the loop-local landmark set: seen by cand or its strong covisibles
-    group_kf = set_rows(cov_row >= cov_threshold, cand, True) & m.kf_valid
-    sel = (group_kf[:, None] & (m.kf_obs >= 0)).reshape(-1)
-    group = scatter_max(torch.zeros(M, dtype=torch.bool, device=dev),
-                        torch.where(sel, m.kf_obs.reshape(-1), 0),
-                        sel) & m.mp_valid
+    return group_projection_score_cross(m, slot, m, cand, cov_row, s, R, t,
+                                        rig_kind, n_cams, rig, img_w,
+                                        img_h, radius, cov_threshold)
 
-    # landmarks -> candidate body frame -> hypothesized slot body frame
-    p_bc = _to_body(m.kf_R[cand], m.kf_t[cand], m.mp_pos)
+
+def group_projection_score_cross(m_cur: ms.MapState, slot,
+                                 m_cand: ms.MapState, cand, cov_row, s, R,
+                                 t, rig_kind: int, n_cams: int, rig,
+                                 img_w: float, img_h: float,
+                                 radius: float = 8.0,
+                                 cov_threshold: int = 15) -> torch.Tensor:
+    """Cross-MAP form of `group_projection_score`: the candidate keyframe
+    and its covisible-group landmarks live in `m_cand` (another Atlas
+    map), the current keyframe's features in `m_cur` (the same
+    nProjMatches verification run on merge candidates,
+    src/LoopClosing.cc:695-994).
+
+    s, R, t: body(slot in m_cur) -> body(cand in m_cand) Sim3.
+    Returns n_matches ([] int32)."""
+    CF = m_cand.kf_obs.shape[1]
+    F = CF // n_cams
+    M2 = m_cand.mp_pos.shape[0]
+    dev = m_cand.kf_obs.device
+    group_kf = (set_rows(cov_row >= cov_threshold, cand, True)
+                & m_cand.kf_valid)
+    sel = (group_kf[:, None] & (m_cand.kf_obs >= 0)).reshape(-1)
+    group = scatter_max(torch.zeros(M2, dtype=torch.bool, device=dev),
+                        torch.where(sel, m_cand.kf_obs.reshape(-1), 0),
+                        sel) & m_cand.mp_valid
+
+    p_bc = _to_body(m_cand.kf_R[cand], m_cand.kf_t[cand], m_cand.mp_pos)
     p_bs = ((p_bc - t) @ R) / s
 
     n = torch.zeros((), dtype=torch.int32, device=dev)
@@ -241,11 +299,12 @@ def group_projection_score(m: ms.MapState, slot, cand, cov_row, s, R, t,
                & (uv[:, 1] >= 0) & (uv[:, 1] < img_h))
         sl = slice(c * F, (c + 1) * F)
         lvl = ms.predict_scale_level(torch.linalg.norm(p_c, dim=-1),
-                                     m.mp_dmax)
+                                     m_cand.mp_dmax)
         idx, _ = matcher.match_projection(
-            uv, lvl, radius, m.mp_desc, vis,
-            m.kf_xy[slot][sl], m.kf_level[slot][sl], m.kf_desc[slot][sl],
-            m.kf_feat_valid[slot][sl], max_dist=matcher.TH_LOW)
+            uv, lvl, radius, m_cand.mp_desc, vis,
+            m_cur.kf_xy[slot][sl], m_cur.kf_level[slot][sl],
+            m_cur.kf_desc[slot][sl], m_cur.kf_feat_valid[slot][sl],
+            max_dist=matcher.TH_LOW)
         n = n + torch.sum(idx >= 0, dtype=torch.int32)
     return n
 
@@ -317,6 +376,9 @@ class LoopCloser:
         self.samples = collections.deque(samples)
         self.n_loops = 0
         self.n_merges = 0
+        # the world Sim3 (s, R, t) of the last weld, as host values: the
+        # tracker scales its trajectory entries of the welded map by s
+        self.last_weld = None
         # the rig enables reprojection verification (the OptimizeSim3
         # analog); inertial switches the correction to the 4-DoF graph
         # and fixes the scale (bFixScale, src/LoopClosing.cc:1329)
@@ -625,8 +687,100 @@ class LoopCloser:
             m, _ = mono.global_ba_step(m, self.rig.kind, self.rig)
         return m
 
+    # -- Atlas merge detection (the merge path of LoopClosing,
+    # src/LoopClosing.cc:176-204 scale sanity, MergeLocal / MergeLocal2) --
     def detect_merge(self, atlas, slot: int):
-        raise NotImplementedError(mono._LATER.format(
-            "Queue 1 item 6: cross-map merge detection, "
-            "LoopCloser.detect_merge"))
+        """Try to weld the CURRENT atlas map into an older map through a
+        verified cross-map Sim3.
 
+        On success the merged map replaces the older map, the current map
+        leaves the atlas, `last_weld` holds the world Sim3 (s, R, t) that
+        moved the current map, and (map_index, kf_offset, mp_offset) is
+        returned so that the caller can remap its bookkeeping (the
+        reference migrates pointers in MergeLocal; slabs shift indices
+        instead). Returns None when no merge happened."""
+        cfg = self.cfg
+        cur_id = atlas.current
+        m_cur = atlas.maps[cur_id]
+        q_desc = m_cur.kf_desc[slot]
+        q_valid = m_cur.kf_feat_valid[slot]
+        for other_id in range(len(atlas.maps)):
+            if other_id == cur_id:
+                continue
+            m_old = atlas.maps[other_id]
+            if int(m_old.n_kf) < 2:
+                continue
+            scores = cross_place_scores(q_desc, q_valid, m_old)
+            top = topk_stable(scores, 2)[1]
+            top, ok = torch.stack(
+                [top, (scores[top] >= cfg.min_desc_matches).to(top.dtype)]
+            ).tolist()
+            for cand in [c for c, o in zip(top, ok) if o]:
+                hit = self._try_weld(atlas, cur_id, other_id, slot, cand)
+                if hit is not None:
+                    return hit
+        return None
+
+    def _try_weld(self, atlas, cur_id: int, other_id: int, slot: int,
+                  cand: int):
+        """One merge candidate: cross pairs -> RANSAC -> refinement ->
+        the inertial scale gate -> the weld, its merge edge and the
+        welding BA. Returns detect_merge's hit or None."""
+        cfg = self.cfg
+        m_cur, m_old = atlas.maps[cur_id], atlas.maps[other_id]
+        pairs = _matched_pairs_cross(m_cur, slot, m_old, cand)
+        if int(pairs.valid.sum()) < cfg.min_sim3_inliers:
+            return None
+        if self.rig is not None:
+            res = sim3_mod.ransac_sim3_reproj(
+                self.gen, pairs, self.rig.kind, self.rig,
+                fix_scale=self.inertial, min_inliers=cfg.min_sim3_inliers,
+                sample_idx=self._ransac_samples())
+        else:
+            res = sim3_mod.ransac_sim3(
+                self.gen, pairs.p_a, pairs.p_b, pairs.valid,
+                fix_scale=self.inertial, min_inliers=cfg.min_sim3_inliers,
+                sample_idx=self._ransac_samples())
+        if not bool(res.success):
+            return None
+        ref = self._verify_sim3(pairs, res)
+        if ref is not None:
+            if int(ref.n_inliers) < cfg.min_sim3_inliers:
+                return None
+            res = res._replace(s=ref.s, R=ref.R, t=ref.t)
+        # scale sanity of inertial merges (the 0.9-1.1 gate,
+        # src/LoopClosing.cc:176-204)
+        if self.inertial and not 0.9 < float(res.s) < 1.1:
+            return None
+        # world Sim3 current-map world -> old-map world:
+        # S_w = T_wb(cand) o S_ba o T_bw(slot)
+        one = torch.ones((), device=res.s.device)
+        s1, R1, t1 = lie.sim3_compose(one, m_old.kf_R[cand],
+                                      m_old.kf_t[cand], res.s, res.R, res.t)
+        s_w, R_w, t_w = lie.sim3_compose(
+            s1, R1, t1, *lie.sim3_inverse(one, m_cur.kf_R[slot],
+                                          m_cur.kf_t[slot]))
+        kf_off, mp_off = torch.stack([m_old.n_kf, m_old.n_mp]).tolist()
+        merged, ok_m = atlas_mod.merge_maps(m_old, m_cur, s_w, R_w, t_w)
+        if not ok_m:
+            return None
+        # the weld as a permanent merge edge (mspMergeEdges,
+        # KeyFrame.h:216-243)
+        merged = ms.add_loop_edge(merged, cand, slot + kf_off)
+        # welding BA over the seam: the welded-in keyframes move, the
+        # older map anchors the gauge (the welding LocalBundleAdjustment
+        # after MergeLocal's Sim3 transform, src/Optimizer.cc:3927; the
+        # inertial MergeInertialBA analog, src/Optimizer.cc:4365, runs in
+        # MultiTracker._remap_after_merge once the chains are welded)
+        if self.rig is not None:
+            K = merged.kf_R.shape[0]
+            free = (torch.arange(K, device=merged.kf_valid.device)
+                    >= kf_off) & merged.kf_valid
+            merged, _ = mono.welding_ba_step(merged, free, self.rig.kind,
+                                             self.rig)
+        atlas.maps[other_id] = merged
+        atlas.maps.pop(cur_id)
+        atlas.current = other_id if other_id < cur_id else other_id - 1
+        self.n_merges += 1
+        self.last_weld = (float(s_w), R_w.cpu().numpy(), t_w.cpu().numpy())
+        return atlas.current, kf_off, mp_off

@@ -34,8 +34,6 @@ from ..slam_map import map_state as ms
 from ..solvers import two_view
 from . import tracking as mono
 
-_LATER = mono._LATER
-
 
 def concat_bands(feats: extractor.Features) -> dict:
     """[C, F, ...] camera-batched features -> one bank [C*F, ...]."""
@@ -543,7 +541,7 @@ class MultiTrackerConfig:
     temporal_refs: int = 2
     # frames to coast in LOST before abandoning the map for a fresh one in
     # the atlas (reference: CreateMapInAtlas, src/Tracking.cc:1953-1968);
-    # read only with an atlas, which is not ported yet
+    # read only with an atlas
     max_lost_frames: int = 20
     # external per-camera depth priors (reference: depth maps sampled at
     # undistorted keypoints into pseudo-stereo, src/Frame.cc:1659-1765):
@@ -593,9 +591,6 @@ class MultiTracker:
         """dist: optional [C, 4] radtan (k1, k2, p1, p2) per camera of a
         distorted pinhole rig; device: where the map and the pose live
         (the current CUDA device when None)."""
-        if atlas is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 6: multi-map, the atlas and its tracker arms"))
         self.device = dev = resolve_device(device)
         # optional `loop_closing.LoopCloser`, called on each new keyframe
         self.loop_closer = loop_closer
@@ -605,10 +600,20 @@ class MultiTracker:
             np.asarray(dist, np.float32)).to(dev)
         self.noise = (noise or pre_mod.ImuNoise.from_sigmas(
             1.7e-4, 2e-3, 1.9e-5, 3e-3, cfg.imu_freq, device=dev)).to(dev)
+        # optional multi-map `atlas.Atlas` (a map lost for longer than
+        # `max_lost_frames` is parked there; merge detection rejoins it)
+        self.atlas = atlas
         self.state = self.NOT_INITIALIZED
         CF = cfg.n_cams * cfg.orb.n_features
-        self.map = ms.allocate(cfg.max_kf, CF, cfg.max_mp, device=dev)
-        self.map_id = 0
+        if atlas is not None:
+            self.map, self.map_id = atlas.open(cfg.max_kf, CF, cfg.max_mp,
+                                               dev)
+        else:
+            self.map = ms.allocate(cfg.max_kf, CF, cfg.max_mp, device=dev)
+            self.map_id = 0
+        # preintegration chains (`kf_pre` lists) of parked maps, by atlas
+        # map index
+        self._parked_pre = {}
         self.lost_frames = 0
         # localization-only: track, never extend the map
         # (reference: ActivateLocalizationMode, System.h:132)
@@ -793,6 +798,12 @@ class MultiTracker:
                     # pose stays usable for relocalization and re-entry
                     # (reference: Tracking.cc:1929-1940)
                     self.R, self.t, self.v = R_pred, t_pred, v_pred
+                if (self.atlas is not None
+                        and self.lost_frames > cfg.max_lost_frames
+                        and self.n_kf >= 2):
+                    # park the map and start fresh (reference:
+                    # CreateMapInAtlas, src/Tracking.cc:1953-1968)
+                    self._spawn_new_map()
                 self._record(time)
                 self.last_time = time
                 return False
@@ -840,8 +851,102 @@ class MultiTracker:
             self.map, ref, self.R, self.t))
 
     def get_trajectory(self):
-        """(times, R [T,3,3], t [T,3]) against the final map."""
-        return mono.replay_trajectory(self.trajectory, self.map)
+        """(times, R [T,3,3], t [T,3]) against the final map(s): each
+        entry against the atlas map it was recorded in."""
+        self._sync_atlas()
+        maps = self.map if self.atlas is None else self.atlas.maps
+        return mono.replay_trajectory(self.trajectory, maps)
+
+    # -- Atlas bookkeeping ---------------------------------------------------
+    def _sync_atlas(self):
+        if self.atlas is not None:
+            self.atlas.maps[self.map_id] = self.map
+
+    def _spawn_new_map(self):
+        """Park the current map and its preintegration chain; start fresh.
+        The IMU initializes again in the new map (the reference resets its
+        IMU-init flags in CreateMapInAtlas); the bias estimate stays as the
+        starting guess."""
+        cfg, dev = self.cfg, self.device
+        self._sync_atlas()
+        self._parked_pre[self.map_id] = self.kf_pre
+        self.map_id = self.atlas.create_map(
+            cfg.max_kf, cfg.n_cams * cfg.orb.n_features, cfg.max_mp)
+        self.map = self.atlas.current_map
+        self.state = self.NOT_INITIALIZED
+        self.R = torch.eye(3, device=dev)
+        self.t = torch.zeros(3, device=dev)
+        self.v = torch.zeros(3, device=dev)
+        self.vel_R = torch.eye(3, device=dev)
+        self.vel_t = torch.zeros(3, device=dev)
+        self.imu_initialized = False
+        self.last_kf_slot = -1
+        self.last_kf_time = None
+        self.n_kf = 0
+        self.ref_kf_inliers = 0
+        self.lost_frames = 0
+        self.kf_pre = []
+        self._imu_kf = []
+
+    def _remap_after_merge(self, old_map_id: int, new_map_id: int,
+                           kf_off: int, s: float = 1.0):
+        """After the current map was welded into an older one by a world
+        Sim3 of scale `s`: the trajectory (`mono.remap_after_weld`), the
+        welded preintegration chain, and the MergeInertialBA analog."""
+        self.trajectory = mono.remap_after_weld(self.trajectory, old_map_id,
+                                                new_map_id, kf_off, s)
+        # weld the chains: the parked (older) map's chain fills slots
+        # [0, kf_off), this map's follows (MergeLocal2 keeps both temporal
+        # chains, src/LoopClosing.cc:1956)
+        parked, self._parked_pre = self._parked_pre, {}
+        for mid, pres in parked.items():
+            mid2 = mid - 1 if mid > old_map_id else mid
+            if mid2 == new_map_id:
+                chain = list(pres) + [None] * (kf_off - len(pres))
+                self.kf_pre = chain[:kf_off] + self.kf_pre
+            elif mid != old_map_id:
+                self._parked_pre[mid2] = pres
+        # MergeInertialBA analog (src/Optimizer.cc:4365, run by MergeLocal2
+        # after the weld): the merged map with the whole inertial edge set.
+        # The seam interval (last parked keyframe -> first welded one) has
+        # no preintegration, so its edge stays invalid, as the reference's
+        # broken chain across sessions
+        if self.imu_initialized:
+            K = self.cfg.max_kf
+            pre_b, cvalid = self._kf_pre_batch(K)
+            cvalid = cvalid & (torch.arange(1, K, device=self.device)
+                               < self.map.n_kf)
+            self.map, _ = mono.global_inertial_ba_step(
+                self.map, pre_b, cvalid, self.rig.kind, self.rig)
+            self._sync_atlas()
+
+    def _merge(self, slot: int) -> int:
+        """Cross-map merge detection on keyframe `slot` (the merge path of
+        LoopClosing -> MergeLocal2 for inertial maps); after a weld the
+        trajectory, the chains, the map index and the slots follow, and a
+        window BA (VI once the IMU is initialized) welds the junction.
+        Returns the keyframe's slot, shifted by a weld."""
+        cfg, rig = self.cfg, self.rig
+        self._sync_atlas()
+        old_id = self.map_id
+        hit = self.loop_closer.detect_merge(self.atlas, slot)
+        if hit is None:
+            return slot
+        new_id, kf_off, _ = hit
+        self.map = self.atlas.current_map
+        self._remap_after_merge(old_id, new_id, kf_off,
+                                self.loop_closer.last_weld[0])
+        self.map_id = new_id
+        slot += kf_off
+        self.last_kf_slot = slot
+        self.n_kf = int(self.map.n_kf)
+        if self.imu_initialized:
+            self._vi_local_ba(slot)
+        else:
+            self.map, _ = mono.local_ba_step(self.map, slot, rig.kind, rig,
+                                             window=cfg.ba_window)
+        self._sync_atlas()
+        return slot
 
     def _recycle_slots(self):
         """Compact the keyframe and landmark slabs when full, welding the
@@ -877,6 +982,7 @@ class MultiTracker:
         else:
             self.last_kf_slot = n_new - 1
         self.n_kf = n_new
+        self._sync_atlas()
 
     def _band0_feats(self, bank) -> extractor.Features:
         return band0_feats(bank, self.cfg.orb.n_features)
@@ -1116,6 +1222,8 @@ class MultiTracker:
 
         if self.loop_closer is not None:
             self._close_loop(slot)
+            if self.atlas is not None and len(self.atlas.maps) > 1:
+                slot = self._merge(slot)
 
         self.R = self.map.kf_R[slot]
         self.t = self.map.kf_t[slot]

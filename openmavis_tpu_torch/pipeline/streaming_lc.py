@@ -1,6 +1,7 @@
-"""Device-side loop closing for the streaming VI pipeline (port of
-`LCCarry`, `init_lc_carry`, `_retrieval_scores`, `_covis_edges` and
-`make_lc_step` of `openmavis_tpu/pipeline/streaming_lc.py`).
+"""Device-side loop closing and cross-map merging for the streaming VI
+pipeline (port of `openmavis_tpu/pipeline/streaming_lc.py`: `LCCarry`,
+`init_lc_carry`, `_retrieval_scores`, `_covis_edges`, `make_lc_step` and
+`make_merge_step`).
 
 The whole acceptance chain — retrieval, Sim3 RANSAC, projection
 refinement, covisible-group projection verification, temporal-consistency
@@ -25,8 +26,9 @@ Reference parity:
                             src/LoopClosing.cc:1108-1372
 * post-loop GBA             RunGlobalBundleAdjustment / FullInertialBA,
                             src/LoopClosing.cc:2351-2470
-
-Not ported yet: `make_merge_step` (the cross-map weld; ROADMAP.md).
+* cross-map weld            the merge path of LoopClosing: scale sanity
+                            src/LoopClosing.cc:176-204, MergeLocal2
+                            1956-2130 (`make_merge_step`)
 """
 
 from __future__ import annotations
@@ -39,13 +41,15 @@ from .. import resolve_device
 from ..geometry import lie
 from ..ops import set_rows
 from ..optim import pose_graph, sim3_refine
+from ..slam_map import atlas as atlas_mod
 from ..slam_map import bow
 from ..slam_map import map_state as ms
 from ..solvers import sim3 as sim3_mod
 from . import loop_closing as lc_mod
 from . import tracking as trk
 
-__all__ = ["LCCarry", "LCStep", "init_lc_carry", "make_lc_step"]
+__all__ = ["LCCarry", "LCStep", "MergeStep", "init_lc_carry",
+           "make_lc_step", "make_merge_step"]
 
 
 class LCCarry(NamedTuple):
@@ -437,3 +441,191 @@ def make_lc_step(cfg, rig_kind: int, n_cams: int, inertial: bool,
     `gba_steps=0` disables it.
     """
     return LCStep(cfg, rig_kind, n_cams, inertial, img_w, img_h, **kw)
+
+
+class MergeStep:
+    """The per-frame CROSS-MAP merge step for one configuration:
+    `step(m, c, lcc, m2, rig) -> (m, c, lcc)`, built by `make_merge_step`.
+
+    `m2` is an OLDER session's map (the weld destination: its keyframes
+    anchor the gauge). On a fresh keyframe of `m` it runs BoW retrieval
+    against m2, the cross-map pairs, the Sim3 RANSAC and refinement, the
+    scale gate and the covisible-group verification; a confirmed
+    hypothesis welds `m` into m2 (`atlas.merge_maps_device`) with the
+    merge edge, moves the carry into m2's world, shifts its slots, the
+    trajectory ring and the preintegration chain by m2's keyframe count
+    (kf_off), and runs the welding BA. The merged slab then replaces `m`
+    and `lcc.merged` keeps detection from firing again. A weld whose maps
+    do not fit m2's capacity leaves m, the carry and `lcc` as they were.
+
+    Each of the reference's `lax.cond`s is a Python branch on a device
+    scalar: one read per frame, and on a fresh keyframe one for the
+    retrieval's verdict and one for the confirmation. `events` names what
+    the last call ran: "merge_attempt", "weld"."""
+
+    def __init__(self, cfg, rig_kind: int, n_cams: int, inertial: bool,
+                 img_w: float, img_h: float, score_min: int = 40,
+                 min_pairs: int = 20, min_group: int = 30,
+                 weld_ba: bool = True, scale_lo: float = 0.9,
+                 scale_hi: float = 1.1, min_kf: int = 5):
+        self.rig_kind = rig_kind
+        self.n_cams = n_cams
+        self.inertial = inertial
+        self.img_w, self.img_h = img_w, img_h
+        self.obs_cap = int(getattr(cfg, "obs_cap", 131072))
+        self.score_min, self.min_pairs = score_min, min_pairs
+        self.min_group, self.weld_ba = min_group, weld_ba
+        # scale sanity: inertial maps hold their scale (the reference's
+        # 0.9-1.1 gate, src/LoopClosing.cc:176-204)
+        self.scale_lo = scale_lo if inertial else 0.1
+        self.scale_hi = scale_hi if inertial else 10.0
+        # maturity gate: the current map needs structure (and, for
+        # inertial rigs, a few keyframes of gravity and scale settling)
+        # before a weld is trustworthy: an immature weld freezes early
+        # drift into the seam
+        self.min_kf = min_kf
+        self.events: tuple = ()
+
+    def __call__(self, m, c, lcc: LCCarry, m2, rig, sample_idx=None):
+        return self.step(m, c, lcc, m2, rig, sample_idx)
+
+    def step(self, m, c, lcc: LCCarry, m2, rig, sample_idx=None):
+        """`sample_idx` ([n_hyp, 3]) replaces the RANSAC draw of this call
+        (for holding the step against the reference package)."""
+        slot, merge_last, merged, n_kf2 = torch.stack(
+            [m.n_kf - 1, lcc.merge_last, lcc.merged.to(torch.int32),
+             m2.n_kf]).tolist()
+        self.events = ()
+        fresh = (slot != merge_last and slot >= self.min_kf - 1
+                 and not merged and n_kf2 >= 2)
+        if slot != merge_last:
+            lcc = lcc._replace(merge_last=torch.full_like(lcc.merge_last,
+                                                          slot))
+        if not fresh:
+            return m, c, lcc
+        cand, cand_ok = self.retrieval(m, m2, slot)
+        if not cand_ok:
+            return m, c, lcc
+        events = ["merge_attempt"]
+        ok, s, R, t = self.solve_candidate(m, m2, c.gen, slot, cand, rig,
+                                           sample_idx)
+        cov2 = ms.covisibility_matrix(m2)
+        g = lc_mod.group_projection_score_cross(
+            m, slot, m2, cand, cov2[cand], s, R, t, self.rig_kind,
+            self.n_cams, rig, self.img_w, self.img_h)
+        if bool(ok & (g >= self.min_group)):
+            events.append("weld")
+            m, c, lcc = self.weld(m, c, lcc, m2, rig, slot, cand, s, R, t)
+        self.events = tuple(events)
+        return m, c, lcc
+
+    # ---- stages ------------------------------------------------------
+    def retrieval(self, m, m2, slot: int):
+        """The best BoW candidate of keyframe `slot` among m2's keyframes
+        and whether it clears `score_min`. Returns (cand, ok) on the
+        host."""
+        K2 = m2.kf_R.shape[0]
+        scores = bow.scores(m2.kf_bow, m.kf_bow[slot])
+        idx2 = torch.arange(K2, device=scores.device)
+        sc = torch.where(m2.kf_valid & (idx2 < m2.n_kf), scores, -1)
+        cand = torch.argmax(sc)
+        cand, best = torch.stack([cand, sc[cand].to(cand.dtype)]).tolist()
+        return cand, best >= self.score_min
+
+    def solve_candidate(self, m, m2, gen, slot: int, cand: int, rig,
+                        sample_idx=None):
+        """Cross-map pairs -> RANSAC -> projection refinement -> the
+        scale gate. Returns (ok [] bool, s, R, t): the refined Sim3
+        body(slot in m) -> body(cand in m2)."""
+        pairs = lc_mod._matched_pairs_cross(m, slot, m2, cand)
+        n_pairs = torch.sum(pairs.valid, dtype=torch.int32)
+        res = sim3_mod.ransac_sim3_reproj(
+            gen, pairs, self.rig_kind, rig, fix_scale=self.inertial,
+            min_inliers=self.min_pairs, sample_idx=sample_idx)
+        C = rig.params.shape[0]
+        cam_a = torch.clamp(pairs.cam_a, 0, C - 1).to(torch.int64)
+        cam_b = torch.clamp(pairs.cam_b, 0, C - 1).to(torch.int64)
+        ref = sim3_refine.refine_sim3(
+            res.s, res.R, res.t, pairs.p_a, pairs.p_b, pairs.uv_a,
+            pairs.uv_b, pairs.sigma2_a, pairs.sigma2_b,
+            pairs.valid & res.inlier, self.rig_kind,
+            rig.params[cam_a], rig.params[cam_b],
+            rig.R_cb[cam_a], rig.t_cb[cam_a],
+            rig.R_cb[cam_b], rig.t_cb[cam_b], fix_scale=self.inertial)
+        ok = (res.success & (n_pairs >= self.min_pairs)
+              & (ref.n_inliers >= self.min_pairs) & torch.isfinite(ref.s)
+              & (ref.s > self.scale_lo) & (ref.s < self.scale_hi))
+        return ok, ref.s, ref.R, ref.t
+
+    def weld(self, m, c, lcc: LCCarry, m2, rig, slot: int, cand: int, s, R,
+             t):
+        """Weld `m` into m2 through the confirmed Sim3 body(slot) ->
+        body(cand), with no read to the host; `fits` selects between the
+        welded and the unchanged state."""
+        K = m.kf_R.shape[0]
+        dev = m.kf_R.device
+        # world Sim3 current world -> m2's world:
+        # S_w = T_wb2(cand) o S_ba o T_bw(slot)
+        one = torch.ones((), dtype=s.dtype, device=dev)
+        s1, R1, t1 = lie.sim3_compose(one, m2.kf_R[cand], m2.kf_t[cand],
+                                      s, R, t)
+        s_w, R_w, t_w = lie.sim3_compose(
+            s1, R1, t1, *lie.sim3_inverse(one, m.kf_R[slot], m.kf_t[slot]))
+        kf_off = m2.n_kf
+        merged, fits = atlas_mod.merge_maps_device(m2, m, s_w, R_w, t_w)
+        merged = ms.add_loop_edge(merged, cand, slot + kf_off)
+        # the carry in the merged world, its slots shifted by kf_off; every
+        # ring entry recorded this session refers to a slot of the
+        # pre-merge slab (unwritten entries are overwritten before they are
+        # read), and its offset from that keyframe scales by s_w
+        ks = torch.arange(K, device=dev)
+        tgt = torch.where((ks < m.n_kf) & (ks + kf_off < K), ks + kf_off, K)
+
+        def shift(x):
+            ext = torch.zeros((K + 1,) + x.shape[1:], dtype=x.dtype,
+                              device=dev)
+            ext[tgt] = x
+            return ext[:K]
+
+        def sel(a, b):
+            return torch.where(fits, a, b)
+
+        tr = c.traj
+        c = c._replace(
+            R=sel(lie.normalize_rotation(R_w @ c.R), c.R),
+            p=sel(s_w * (R_w @ c.p) + t_w, c.p),
+            v=sel(s_w * (R_w @ c.v), c.v),
+            last_kf_slot=sel(c.last_kf_slot + kf_off, c.last_kf_slot),
+            traj=tr._replace(ref=sel(tr.ref + kf_off, tr.ref),
+                             t_rel=sel(s_w * tr.t_rel, tr.t_rel)),
+            chain=c.chain.map(lambda x: sel(shift(x), x)),
+            chain_valid=sel(shift(c.chain_valid), c.chain_valid))
+        if self.weld_ba:
+            free = (ks >= kf_off) & merged.kf_valid
+            merged, _ = trk.welding_ba_step(merged, free, self.rig_kind, rig,
+                                            obs_cap=self.obs_cap)
+
+        def i32(v):
+            return torch.full_like(lcc.cand, v)
+
+        lcc2 = lcc._replace(
+            merged=torch.ones_like(lcc.merged), n_merges=lcc.n_merges + 1,
+            kf_off=kf_off.to(torch.int32),
+            # the loop closer's bookkeeping shifts with the slots
+            last_slot=lcc.last_slot + kf_off,
+            merge_last=lcc.merge_last + kf_off,
+            cand=i32(-1), pend_slot=i32(-1), count=i32(0))
+        return (atlas_mod.tree_where(fits, merged, m), c,
+                atlas_mod.tree_where(fits, lcc2, lcc))
+
+
+def make_merge_step(cfg, rig_kind: int, n_cams: int, inertial: bool,
+                    img_w: float, img_h: float, **kw) -> MergeStep:
+    """Build the per-frame cross-map merge step; the keywords and their
+    defaults are `MergeStep`'s (`score_min=40, min_pairs=20,
+    min_group=30, weld_ba=True, scale_lo=0.9, scale_hi=1.1, min_kf=5`).
+
+    Returns step(m, c, lcc, m2, rig) -> (m, c, lcc). Capacity: m2's free
+    slots must hold m (`merge_maps_device`'s `fits`), or the weld is
+    skipped."""
+    return MergeStep(cfg, rig_kind, n_cams, inertial, img_w, img_h, **kw)

@@ -14,7 +14,10 @@ landmarks, weld the preintegration chain, re-base the trajectory ring). A
 frame that fails to track puts the tracker in LOST: it coasts on the IMU
 and every LOST frame tries `tracking.relocalize_step` for a pose proposal.
 With `device_lc` the device loop closer (`streaming_lc.make_lc_step`) runs
-after every frame's step, with the amortized post-loop FullInertialBA.
+after every frame's step, with the amortized post-loop FullInertialBA;
+with a `secondary_map` (an earlier session's map) the device cross-map
+merge (`streaming_lc.make_merge_step`) runs between the two and welds this
+session into that map once it recognizes the place.
 
 Three initializations: a rig with `stereo_pairs` starts metric on its
 first frame from the rig baseline; `use_depth` adds depth-prior landmarks
@@ -31,9 +34,8 @@ scalar, which reads it back to the host (a sync per decision).
 With `loop_closer=` the host-policy `loop_closing.LoopCloser` runs on the
 newest keyframe whenever the application calls `maybe_close_loop`.
 
-Not ported yet, each raising NotImplementedError and queued in ROADMAP.md:
-the cross-map weld (`secondary_map`, `merge_kw`) and the sharded global BA
-(`run_global_ba(mesh=...)`).
+Not ported yet, raising NotImplementedError and queued in ROADMAP.md: the
+sharded global BA (`run_global_ba(mesh=...)`).
 `frames_per_dispatch > 1` (the reference's chunking of frames into one
 dispatch for its transport) is left out and raises too.
 
@@ -75,7 +77,7 @@ from .streaming import (INIT, LOST, NEED_REF, OK, TrajRing, _masked_median,
 __all__ = ["VIStreamConfig", "VIStreamCarry", "StreamingVITracker",
            "init_carry"]
 
-_LATER = mt._LATER
+_LATER = trk._LATER
 
 
 class VIStreamCarry(NamedTuple):
@@ -765,10 +767,13 @@ class StreamingVITracker:
         """dist: optional [C, 4] radtan (k1, k2, p1, p2) per camera of a
         distorted pinhole rig: the images are the raw ones, and the
         keypoints are undistorted before anything uses them."""
-        if secondary_map is not None or merge_kw is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 6: the cross-map weld, "
-                "streaming_lc.make_merge_step"))
+        """secondary_map: an earlier session's MapState of this
+        configuration's capacities, kept on the device; with `device_lc`
+        the merge step (`streaming_lc.make_merge_step(**merge_kw)`) welds
+        this session into it (reference: MergeLocal2,
+        src/LoopClosing.cc:1956)."""
+        if secondary_map is not None and not device_lc:
+            raise ValueError("secondary_map requires device_lc")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.noise = (noise or pre_mod.ImuNoise.from_sigmas(
@@ -792,12 +797,29 @@ class StreamingVITracker:
         # what the tracking step ran on the last push beside plain
         # tracking (`VIStep.events`)
         self.step_events: tuple = ()
+        # the device cross-map merge against `map2` ("merge_attempt",
+        # "weld" land in lc_events before the loop closer's)
+        self._merge_step = None
+        self.map2 = None
         if device_lc:
             lc_kw = device_lc if isinstance(device_lc, dict) else {}
             self._lc_step = streaming_lc.make_lc_step(
                 cfg, self.rig.kind, cfg.n_cams, cfg.use_imu,
                 float(cfg.img_w), float(cfg.img_h), **lc_kw)
             self.lc_carry = streaming_lc.init_lc_carry(device=self.device)
+        if secondary_map is not None:
+            shapes = (secondary_map.kf_obs.shape,
+                      secondary_map.mp_pos.shape) if isinstance(
+                secondary_map, ms.MapState) else None
+            if shapes != (self.map.kf_obs.shape, self.map.mp_pos.shape):
+                raise ValueError(
+                    "secondary_map must be a MapState of this tracker's "
+                    "capacities (max_kf, n_cams * n_features, max_mp)")
+            self.map2 = ms.MapState(*(x.to(self.device)
+                                      for x in secondary_map))
+            self._merge_step = streaming_lc.make_merge_step(
+                cfg, self.rig.kind, cfg.n_cams, cfg.use_imu,
+                float(cfg.img_w), float(cfg.img_h), **(merge_kw or {}))
         self._t_prev: float | None = None
         self._snap = None
         # host-policy loop closing (`maybe_close_loop`)
@@ -850,9 +872,15 @@ class StreamingVITracker:
             sample_idx)
         self.step_events = self._step.events
         if self._lc_step is not None:
+            merge_events = ()
+            if self._merge_step is not None:
+                self.map, self.carry, self.lc_carry = self._merge_step(
+                    self.map, self.carry, self.lc_carry, self.map2,
+                    self.rig)
+                merge_events = self._merge_step.events
             self.map, self.carry, self.lc_carry = self._lc_step(
                 self.map, self.carry, self.lc_carry, self.rig)
-            self.lc_events = self._lc_step.events
+            self.lc_events = merge_events + self._lc_step.events
         self._t_prev = time
         self._snap = None
 
@@ -937,6 +965,8 @@ class StreamingVITracker:
             fields.update(n_loops=self.lc_carry.n_loops,
                           gba_left=self.lc_carry.gba_left,
                           lc_max_tilt=self.lc_carry.max_tilt,
+                          n_merges=self.lc_carry.n_merges,
+                          merge_kf_off=self.lc_carry.kf_off,
                           lc_dbg=self.lc_carry.dbg)
         self._snap = fetch(fields)
         return self._snap

@@ -11,7 +11,9 @@ src/Tracking.cc, src/LocalMapping.cc, src/LoopClosing.cc:2351).
   `local_ba_step`; relocalization (`relocalize_step`,
   `descriptor_place_scores`); the whole-map BA steps
   (`full_map_observations`, `_writeback_gba`, `global_ba_step`,
-  `global_inertial_ba_step`) and `recycle_map_slots`;
+  `global_inertial_ba_step`, `welding_ba_step`), `recycle_map_slots`
+  and the trajectory list's replay across an Atlas's maps
+  (`replay_trajectory`, `remap_after_weld`);
 * the host-policy one-camera tracker `Tracker` with `TrackerConfig`, which
   `System` builds for MONOCULAR and RGBD (reference: Tracking::Track,
   src/Tracking.cc:1781-2230).
@@ -607,6 +609,31 @@ def global_inertial_ba_step(m: ms.MapState, pre_b, edge_valid,
     return m, chi
 
 
+def welding_ba_step(m: ms.MapState, free_mask, rig_kind: int,
+                    rig: RigParams, obs_cap: int = 131072):
+    """Weld-window bundle adjustment after an Atlas map merge (the welding
+    LocalBundleAdjustment MergeLocal runs over the frontier after the Sim3
+    transform, src/Optimizer.cc:3927; the inertial MergeInertialBA,
+    src/Optimizer.cc:4365, is covered by `global_inertial_ba_step` once
+    the preintegration chains are welded).
+
+    free_mask: [K] bool, the keyframes allowed to move (the welded-in
+    map's slots); the others are the fixed frontier. A landmark moves only
+    when a free keyframe observes it. Returns (m, chi2)."""
+    obs, observed, kf_local, feat = full_map_observations(m, obs_cap)
+    M = m.mp_pos.shape[0]
+    mp_free = scatter_max(torch.zeros(M, dtype=torch.bool,
+                                      device=m.mp_pos.device),
+                          obs.mp, obs.valid & free_mask[obs.kf])
+    moving = observed & mp_free
+    state, inlier, chi = global_ba.global_bundle_adjust(
+        _whole_map_state(m), obs, rig, ~free_mask | ~m.kf_valid,
+        point_fixed=~moving, stages=(4, 6), cg_iters=24)
+    m = _writeback_gba(m, state, inlier, chi, moving, kf_local, feat,
+                       obs.valid, with_imu=False)
+    return m, chi
+
+
 def relative_pose(m: ms.MapState, ref: int, R, t):
     """(R_rel, t_rel) as numpy: the pose (R, t) relative to keyframe
     `ref`, from one device-to-host transfer of both poses."""
@@ -628,21 +655,46 @@ def rebase_pose(old_m: ms.MapState, new_m: ms.MapState, ref, R, p):
     return nR @ (oR.T @ R), nt + nR @ (oR.T @ (p - ot)), nR @ oR.T
 
 
-def replay_trajectory(trajectory, m: ms.MapState):
+def replay_trajectory(trajectory, maps):
     """(times, R [T,3,3], t [T,3]) of a host trajectory list of (time,
     map_id, ref_slot, R_rel, t_rel) replayed against the keyframe poses of
-    map `m` (reference: mlRelativeFramePoses replayed at save time,
-    src/System.cc:717-1090)."""
-    kf_R = m.kf_R.cpu().numpy()
-    kf_t = m.kf_t.cpu().numpy()
+    the final maps (reference: mlRelativeFramePoses replayed at save time,
+    src/System.cc:717-1090). `maps`: the list of maps indexed by each
+    entry's map_id (an Atlas's), or one MapState for every entry."""
+    if isinstance(maps, ms.MapState):
+        maps = [maps]
+    kf = [torch.cat([m.kf_R.reshape(-1, 9), m.kf_t], 1).cpu().numpy()
+          for m in maps]
     times, Rs, ts = [], [], []
-    for (tm, _, ref, R_rel, t_rel) in trajectory:
+    for (tm, mid, ref, R_rel, t_rel) in trajectory:
+        row = kf[mid][ref]
+        R_ref = row[:9].reshape(3, 3)
         times.append(tm)
-        Rs.append(kf_R[ref] @ R_rel)
-        ts.append(kf_t[ref] + kf_R[ref] @ t_rel)
+        Rs.append(R_ref @ R_rel)
+        ts.append(row[9:] + R_ref @ t_rel)
     return (np.asarray(times),
             np.stack(Rs) if Rs else np.zeros((0, 3, 3)),
             np.stack(ts) if ts else np.zeros((0, 3)))
+
+
+def remap_after_weld(trajectory, old_map_id: int, new_map_id: int,
+                     kf_off: int, s: float):
+    """The trajectory list after map `old_map_id` was welded into map
+    `new_map_id` by a world Sim3 of scale `s`: the welded map's entries
+    point to their shifted slots (+kf_off) in the new map, with t_rel
+    scaled by s (the Sim3 scales every distance of the welded map, so the
+    frame's offset from its keyframe too); the maps after the dropped one
+    shift down by one. (The reference package shifts the slots and leaves
+    t_rel, which puts each replayed frame (s - 1) |t_rel| off.)"""
+    s = np.float32(s)
+    out = []
+    for (tm, mid, ref, R_rel, t_rel) in trajectory:
+        if mid == old_map_id:
+            out.append((tm, new_map_id, ref + kf_off, R_rel, s * t_rel))
+        else:
+            out.append((tm, mid - 1 if mid > old_map_id else mid, ref,
+                        R_rel, t_rel))
+    return out
 
 
 def recycle_map_slots(m: ms.MapState, trajectory, map_id: int):
@@ -711,7 +763,7 @@ class TrackerConfig:
     init_min_matches: int = 80
     # LOST frames before the map is parked in the atlas for a fresh one
     # (reference: CreateMapInAtlas, src/Tracking.cc:1953-1968); read only
-    # with an atlas, which is not ported yet
+    # with an atlas
     max_lost_frames: int = 20
 
 
@@ -743,9 +795,6 @@ class Tracker:
         pinhole rig (the keypoints are undistorted right after extraction,
         reference: Frame::UndistortKeyPoints); device: where the map and
         the pose live (the current CUDA device when None)."""
-        if atlas is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 6: multi-map, the atlas and its tracker arms"))
         self.device = dev = resolve_device(device)
         self.rig = rig.to(dev)
         self.cfg = cfg
@@ -753,11 +802,18 @@ class Tracker:
             np.asarray(dist, np.float32)).to(dev)
         # optional `loop_closing.LoopCloser`, called on each new keyframe
         self.loop_closer = loop_closer
-        self.atlas = None
+        # optional multi-map `atlas.Atlas`: a map lost for longer than
+        # `max_lost_frames` is parked there for a fresh one, and the loop
+        # closer's merge detection welds the maps again
+        self.atlas = atlas
         self.state = self.NOT_INITIALIZED
-        self.map = ms.allocate(cfg.max_kf, cfg.orb.n_features, cfg.max_mp,
-                               device=dev)
-        self.map_id = 0
+        if atlas is not None:
+            self.map, self.map_id = atlas.open(
+                cfg.max_kf, cfg.orb.n_features, cfg.max_mp, dev)
+        else:
+            self.map = ms.allocate(cfg.max_kf, cfg.orb.n_features,
+                                   cfg.max_mp, device=dev)
+            self.map_id = 0
         self.lost_frames = 0
         # localization-only: track, never extend the map
         # (reference: ActivateLocalizationMode, System.h:132)
@@ -943,6 +999,13 @@ class Tracker:
                 sample_idx=sample_idx)
             if not bool(ok_r):
                 self.lost_frames += 1
+                if (self.atlas is not None
+                        and self.lost_frames > cfg.max_lost_frames
+                        and self.n_kf >= 2):
+                    # abandon the map: park it in the atlas and start a
+                    # fresh one; merge detection joins them later
+                    # (reference: CreateMapInAtlas, Tracking.cc:1953-1968)
+                    self._spawn_new_map()
                 self._record(time)
                 return False
             self.R, self.t = R_r, t_r
@@ -1013,8 +1076,66 @@ class Tracker:
             self.map, ref, self.R, self.t))
 
     def get_trajectory(self):
-        """(times, R [T,3,3], t [T,3]) replayed against the final map."""
-        return replay_trajectory(self.trajectory, self.map)
+        """(times, R [T,3,3], t [T,3]) replayed against the final map(s):
+        each entry against the atlas map it was recorded in."""
+        self._sync_atlas()
+        maps = self.map if self.atlas is None else self.atlas.maps
+        return replay_trajectory(self.trajectory, maps)
+
+    # -- Atlas bookkeeping ---------------------------------------------------
+    def _sync_atlas(self):
+        if self.atlas is not None:
+            self.atlas.maps[self.map_id] = self.map
+
+    def _spawn_new_map(self):
+        """Park the current map in the atlas and track into a fresh one."""
+        cfg, dev = self.cfg, self.device
+        self._sync_atlas()
+        self.map_id = self.atlas.create_map(cfg.max_kf, cfg.orb.n_features,
+                                            cfg.max_mp)
+        self.map = self.atlas.current_map
+        self.state = self.NOT_INITIALIZED
+        self._init_feats = None
+        self.R = torch.eye(3, device=dev)
+        self.t = torch.zeros(3, device=dev)
+        self.vel_R = torch.eye(3, device=dev)
+        self.vel_t = torch.zeros(3, device=dev)
+        self.last_kf_slot = -1
+        self.n_kf = 0
+        self.ref_kf_inliers = 0
+        self.lost_frames = 0
+
+    def _remap_after_merge(self, old_map_id: int, new_map_id: int,
+                           kf_off: int, s: float = 1.0):
+        """Trajectory references after the current map was welded into an
+        older one by a world Sim3 of scale `s` (`remap_after_weld`)."""
+        self.trajectory = remap_after_weld(self.trajectory, old_map_id,
+                                           new_map_id, kf_off, s)
+
+    def _merge(self, slot: int) -> int:
+        """Cross-map merge detection on keyframe `slot` (the merge path of
+        LoopClosing, MergeLocal, src/LoopClosing.cc:1381); after a weld the
+        trajectory, the map index and the slots follow, and a wide window
+        BA settles the junction (MergeLocal's welding BA). Returns the
+        keyframe's slot, shifted by a weld."""
+        cfg, rig = self.cfg, self.rig
+        self._sync_atlas()
+        old_id = self.map_id
+        hit = self.loop_closer.detect_merge(self.atlas, slot)
+        if hit is None:
+            return slot
+        new_id, kf_off, _ = hit
+        self.map = self.atlas.current_map
+        self._remap_after_merge(old_id, new_id, kf_off,
+                                self.loop_closer.last_weld[0])
+        self.map_id = new_id
+        slot += kf_off
+        self.last_kf_slot = slot
+        self.n_kf = int(self.map.n_kf)
+        self.map, _ = local_ba_step(self.map, slot, rig.kind, rig,
+                                    window=(cfg.gba_window or cfg.ba_window))
+        self._sync_atlas()
+        return slot
 
     def _recycle_slots(self):
         """Free keyframe and landmark slots when the slab is full: compact
@@ -1028,6 +1149,7 @@ class Tracker:
         if self.last_kf_slot >= 0:
             self.last_kf_slot = int(new_of_old[self.last_kf_slot])
         self.n_kf = int(self.map.n_kf)
+        self._sync_atlas()
 
     def _insert_keyframe(self, feats, time, feat_mp, n_in: int):
         """The mapper chain on a new keyframe: depth landmarks (RGB-D)
@@ -1068,6 +1190,8 @@ class Tracker:
         self.ref_kf_inliers = max(n_in, 1)
         if self.loop_closer is not None:
             self._close_loop(slot)
+            if self.atlas is not None and len(self.atlas.maps) > 1:
+                slot = self._merge(slot)
         self.R = self.map.kf_R[slot]
         self.t = self.map.kf_t[slot]
 

@@ -45,6 +45,7 @@ from openmavis_tpu_torch.optim import pose_graph as tpg
 from openmavis_tpu_torch.pipeline import loop_closing as tlc
 from openmavis_tpu_torch.pipeline import multi_tracking as tmt
 from openmavis_tpu_torch.pipeline import streaming_vi as tsv
+from openmavis_tpu_torch.slam_map import atlas as tatlas
 from openmavis_tpu_torch.slam_map import map_state as tms
 
 
@@ -225,11 +226,18 @@ def test_solve_pair(staged, case):
 
 
 def test_unported_merge_and_default_device(staged, monkeypatch):
-    """`detect_merge` raises and names ROADMAP item 6; the closer builds
-    on the card unless told the CPU, and raises without one."""
+    """`detect_merge` (ROADMAP item 6, ported; its parity is in
+    test_torch_merge.py) is taken: with no other map, or another map of
+    fewer than two keyframes, it welds nothing and leaves the atlas; the
+    closer builds on the card unless told the CPU, and raises without
+    one."""
     _, tl = _closers(tlc.LoopConfig(), staged.jrig, staged.trig, True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tl.detect_merge(object(), SLOT)
+    atlas = tatlas.Atlas(maps=[staged.tm], current=0, device="cpu")
+    assert tl.detect_merge(atlas, SLOT) is None
+    atlas.create_map(K, C * F, M)
+    atlas.current = 0
+    assert tl.detect_merge(atlas, SLOT) is None
+    assert atlas.n_maps() == 2 and tl.n_merges == 0 and tl.last_weld is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tlc.LoopCloser(None, K)

@@ -947,8 +947,22 @@ def test_tracker_with_device_lc(device_lc):
     (dict(merge_kw=dict()), "item 6"),
     (dict(loop_closer=object(), merge_kw=dict()), "item 6")])
 def test_tracker_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _small_tracker(device_lc=True, **kw)
+    """The cross-map weld's options (ROADMAP Queue 1 `item`, ported) are
+    taken: a secondary map that is no MapState of the tracker's
+    capacities is refused with ValueError; `merge_kw` without a secondary
+    map is ignored, as the reference package does; with one it configures
+    the merge step."""
+    if "secondary_map" in kw:
+        with pytest.raises(ValueError, match="capacities"):
+            _small_tracker(device_lc=True, **kw)
+        return
+    _, tr = _small_tracker(device_lc=True, **kw)
+    assert tr._merge_step is None and tr.map2 is None
+    if "loop_closer" in kw:
+        own = tms.allocate(*tr.map.kf_obs.shape, tr.map.mp_pos.shape[0],
+                           device="cpu")
+        _, tr = _small_tracker(device_lc=True, secondary_map=own, **kw)
+        assert tr._merge_step.min_kf == 5 and tr.map2.n_kf.shape == ()
 
 
 def test_tracker_needs_a_card_by_default():

@@ -77,6 +77,7 @@ from openmavis_tpu_torch.imu import preintegration as tpre
 from openmavis_tpu_torch.pipeline import loop_closing as tlc
 from openmavis_tpu_torch.pipeline import multi_tracking as tmt
 from openmavis_tpu_torch.pipeline import tracking as ttrk
+from openmavis_tpu_torch.slam_map import atlas as tatlas
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -640,8 +641,9 @@ def test_integrate_trimmed_against_padded(stereo, span, offset):
 
 def test_entry_points(monkeypatch, stereo):
     """The tracker builds on the current CUDA device unless told the CPU,
-    and raises without a card; the atlas raises and names its ROADMAP
-    item; a loop closer is taken."""
+    and raises without a card; an atlas (ROADMAP item 6) is taken: the
+    tracker allocates map 0 there on its own device and tracks into it; a
+    loop closer is taken."""
     jt, tt = stereo["trackers"]
     rig = tt.rig
     cfg = tt.cfg
@@ -651,8 +653,12 @@ def test_entry_points(monkeypatch, stereo):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tmt.MultiTracker(rig, cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmt.MultiTracker(rig, cfg, atlas=object(), device="cpu")
+    atlas = tatlas.Atlas()
+    at = tmt.MultiTracker(rig, cfg, atlas=atlas, device="cpu")
+    assert at.atlas is atlas and atlas.n_maps() == 1 and at.map_id == 0
+    assert atlas.device == torch.device("cpu") and at.map is atlas.maps[0]
+    assert at.map.kf_obs.shape == (cfg.max_kf,
+                                   cfg.n_cams * cfg.orb.n_features)
     lc = tlc.LoopCloser(None, cfg.max_kf, rig=rig, device="cpu")
     assert tmt.MultiTracker(rig, cfg, loop_closer=lc,
                             device="cpu").loop_closer is lc

@@ -18,7 +18,7 @@ def test_port_imports_without_jax():
         "          'solvers.sim3', 'solvers.pnp', 'optim.pose_graph',\n"
         "          'optim.sim3_refine', 'solvers.two_view',\n"
         "          'frontend.depth', 'slam_map.vocabulary',\n"
-        "          'slam_map.keyframe_db'):\n"
+        "          'slam_map.keyframe_db', 'slam_map.atlas'):\n"
         "    assert 'openmavis_tpu_torch.' + n in names, n\n"
         "from openmavis_tpu_torch.pipeline import multi_tracking\n"
         "for n in ('MultiTracker', 'MultiTrackerConfig'):\n"
@@ -28,6 +28,10 @@ def test_port_imports_without_jax():
         "               (streaming, 'StreamingTracker'),\n"
         "               (streaming, 'StreamConfig')):\n"
         "    assert hasattr(mod, n), n\n"
+        "from openmavis_tpu_torch.slam_map import atlas\n"
+        "for n in ('Atlas', 'transform_map', 'merge_maps',\n"
+        "          'merge_maps_device'):\n"
+        "    assert hasattr(atlas, n), n\n"
         "from openmavis_tpu_torch.pipeline import loop_closing\n"
         "for n in ('LoopCloser', 'LoopConfig'):\n"
         "    assert hasattr(loop_closing, n), n\n"

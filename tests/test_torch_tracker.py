@@ -70,6 +70,7 @@ from openmavis_tpu_torch.frontend import extractor as tex
 from openmavis_tpu_torch.io import synthetic
 from openmavis_tpu_torch.pipeline import loop_closing as tlc
 from openmavis_tpu_torch.pipeline import tracking as ttrk
+from openmavis_tpu_torch.slam_map import atlas as tatlas
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -648,14 +649,18 @@ def test_rgbd_first_tracked_frame(rgbd):
 
 def test_entry_points(monkeypatch, mono):
     """The tracker builds on the current CUDA device unless told the CPU,
-    and raises without a card; the atlas raises and names its ROADMAP
-    item; a loop closer is taken."""
+    and raises without a card; an atlas (ROADMAP item 6) is taken: the
+    tracker allocates map 0 there on its own device and tracks into it; a
+    loop closer is taken."""
     rig, cfg = _trig(), _cfg(ttrk)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrk.Tracker(rig, cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttrk.Tracker(rig, cfg, atlas=object(), device="cpu")
+    atlas = tatlas.Atlas()
+    at = ttrk.Tracker(rig, cfg, atlas=atlas, device="cpu")
+    assert at.atlas is atlas and atlas.n_maps() == 1 and at.map_id == 0
+    assert atlas.device == torch.device("cpu") and at.map is atlas.maps[0]
+    assert at.map.kf_obs.shape == (cfg.max_kf, cfg.orb.n_features)
     lc = tlc.LoopCloser(None, cfg.max_kf, rig=rig, device="cpu")
     assert ttrk.Tracker(rig, cfg, loop_closer=lc,
                         device="cpu").loop_closer is lc
