@@ -30,7 +30,12 @@ Phases (any failure raises; the exit code is then nonzero):
      (CUDA events), each kernel alone (a CUDA graph of 20 calls, and one
      call on a cold L2), each plain version, and
      `matcher.match_projection` by the mask route against the factor
-     route; print each beside its bound;
+     route; print each beside its bound. Last, the extraction check:
+     frame 0 of the flagship scene (4 x 640 x 480, 512 x 8) through
+     `extract_multicam` on the card and on the CPU, with the patch and
+     the stacked sampling: the keypoints equal, and every descriptor bit
+     that differs a BRIEF tie (its two samples within EXTRACT_TIE_GAP on
+     the CPU's values);
   3. drive the port's StreamingVITracker over the flagship scene (4x
      KannalaBrandt8 at 640x480, 4 x 512 ORB features x 8 levels, 400 Hz
      IMU, 160 frames, 1.25 orbits) with device loop closing on
@@ -78,7 +83,7 @@ Phases (any failure raises; the exit code is then nonzero):
      builds it: the bench's values where `MultiTrackerConfig` has the
      field, no atlas, no loop closer), IMU samples fed one by one through
      `feed_imu`, the first 40 of the 160 frames (path 15 drives the same
-     tracker through `System` over all 160). Gates: >= 38 of 40 tracked,
+     tracker through `System` over 80). Gates: >= 38 of 40 tracked,
      IMU initialized, |horn_scale - 1| <= 0.1, ATE (Horn scale) <= 0.15 m
      on the estimate made by frame 39 and at most the reference package's
      own 0.380 m over 160 frames and a third;
@@ -132,9 +137,9 @@ Phases (any failure raises; the exit code is then nonzero):
  14. drive path 12, "device_merge": two sessions welded on the device.
      Session A (path 1's configuration, device loop closing) streams
      frames 0-59 of path 1's scene; session B, a fresh tracker (seed 1)
-     with its own world origin, streams frames 60-159 with A's map as
+     with its own world origin, streams frames 60-139 with A's map as
      `secondary_map` and `make_merge_step`'s defaults. Gates: B tracks
-     >= 90% of its 100 frames, exactly one weld, at a frame in the
+     >= 90% of its 80 frames, exactly one weld, at a frame in the
      reference package's range, `merge_kf_off` = A's keyframes, the
      merged map holds more than A's + 2, B's trajectory in A's world
      within 0.15 m without scale (the reference's value printed beside).
@@ -161,7 +166,8 @@ Phases (any failure raises; the exit code is then nonzero):
      ... `Camera4.k4`, `Camera.type` KannalaBrandt8, `IMU.T_b_c1..4` as
      opencv-matrix dicts, 512 x 8 ORB; no yaml) built from the flagship
      rig, path 5's bench values as tracker overrides, the facade's own
-     LoopCloser and Atlas, the live viewer on: path 1's 160 frames with
+     LoopCloser and Atlas, the live viewer on: path 1's first 80 frames
+     (cut from 160 for the script's time) with
      the IMU given to `track_multi`, one HTTP client attached for the
      last frame. Gates: the parsed rig equal to `build_rig()`'s to 1e-6;
      frames tracked, IMU init, ATE (Horn scale) by frame 79 and over the
@@ -187,6 +193,20 @@ Phases (any failure raises; the exit code is then nonzero):
      which are printed beside), the control's < 0.15 m; the remap on the
      card within 1e-4 of the CPU's. It times `remap_multicam` alone (CUDA
      events, one 2 x 480 x 752 frame).
+ 19. drive path 17, "example_multi_inertial": the flagship main as a user
+     runs it from disk. Path 1's 160 frames are written in the EuRoC
+     layout (four camera directories of zlib PNGs, the 400 Hz IMU csv, a
+     TUM ground truth) with a settings file from `scene.system_settings`
+     (the flagship rig), and `examples.multi_inertial_euroc.main` runs on
+     them in this process with `--cams cam0,cam1,cam2,cam3 --lc-every 30
+     --max-kf 64 --max-mp 16384` (the streaming VI tracker with a host
+     LoopCloser). Gates (path 1's): `imu_init=True` in the main's output,
+     >= 152 of 160 rows in its trajectory file, that file's ATE (Horn
+     scale) <= 0.15 m with |scale - 1| <= 0.1, every frame the loader
+     decoded equal to the rendered frame, both kernels launched. It
+     prints the frame median and p90 from frame 10 on (a synchronized
+     timer around `push`), the loops and the reference main's figures at
+     this configuration (scripts/reference_examples.py flagship).
   Before the paths it prints whether the machine has PyYAML, Pillow and
   libpng (a g++ -lpng probe): the port's paths need none of them.
   Paths 7-9 also print the frame ms median / p90 / max from frame 10 on
@@ -229,7 +249,8 @@ Run: python3 chip_smoke.py   (from the repository root, one GPU)
      rgbd_inertial, multi_tracker, multi_tracker_mono, mono_tracker,
      rgbd_tracker, mono_streaming, host_lc, mono_tracker_lc,
      device_merge, multi_tracker_atlas, mono_atlas, system_imu_multi,
-     system_stereo_rectified); it prints no {"ok": ...} line
+     system_stereo_rectified, example_multi_inertial); it prints no
+     {"ok": ...} line
      python3 chip_smoke.py --out DIR   also writes each path's result
      line into DIR/<path>.json
 """
@@ -278,8 +299,8 @@ MT_BAND_FRAME = 79
 # path 5 runs 40 frames, gated (0.15 m) on the estimate made by frame 39
 # (the reference System's, the same tracker with a closer that closes
 # nothing: 0.025 m, scripts/reference_system.py imu_multi), since path 15
-# drives the same tracker through System over all 160 with the frame-79
-# gate (both at full depth would not fit the script's time)
+# drives the same tracker through System over 80 with the frame-79 gate
+# (both at full depth would not fit the script's time)
 MT5_BAND_FRAME = 39
 MT5_REF_ATE_M = 0.025
 N_FRAMES_MT = MT5_BAND_FRAME + 1
@@ -333,9 +354,10 @@ N_FRAMES_MONO_LC = 100
 MONO_LC_W, MONO_LC_H = 512, 384
 MONO_LC_FEATURES = 512
 # path 12: session A streams path 1's frames 0-59, session B (seed 1)
-# frames 60-159 with A's map as its secondary map and make_merge_step's
-# defaults (a fresh session started on frame 64 of this scene tracks
-# badly in the reference package: scripts/reference_merge.py). The
+# frames 60-139 (N_FRAMES_MERGE) with A's map as its secondary map and
+# make_merge_step's defaults (a fresh session started on frame 64 of this
+# scene tracks badly in the reference package:
+# scripts/reference_merge.py). The
 # reference at this configuration on the CPU (scripts/reference_merge.py
 # device_merge, B's seeds 1, 2, 3): A 60 / 60 tracked, 11 keyframes; B
 # 100 / 100, one weld at frame 127 with every seed, kf_off 11, 29
@@ -343,6 +365,9 @@ MONO_LC_FEATURES = 512
 # The weld frame is held to that frame widened by one keyframe interval
 # (kf_max_interval_s, 5 frames) each way: the weld fires on a keyframe
 MERGE_SPLIT = 60
+# B stops at frame 139, 7 frames past the weld range (cut from 159 for the
+# script's time; every gate is on the weld and B's frames up to it)
+N_FRAMES_MERGE = 140
 MERGE_KW = {}
 MERGE_REF = dict(weld_frames=(122, 132), kf_off=11, merged_n_kf=29,
                  b_ate_noscale_m=0.0401)
@@ -381,7 +406,11 @@ MONO_ATLAS_REF = dict(spawn_frame=28, weld_frame=31, frames_tracked=43,
 # path 5's (>= 95% tracked, 0.15 m by frame 79 as PERF.md section 2) and
 # the reference's ATE over the run and after the global BA, each with a
 # third more
-SYSTEM_REF = dict(min_tracked=152, band_ate_m=0.15, ate_m=0.380 * 4 / 3,
+# (path 15 runs the first 80 frames, cut from 160 for the script's time:
+# its frame-79 gate stays; the 160-frame drift is path 5's record)
+N_FRAMES_SYSTEM = MT_BAND_FRAME + 1
+SYSTEM_REF = dict(min_tracked=N_FRAMES_SYSTEM * 95 // 100, band_ate_m=0.15,
+                  ate_m=0.380 * 4 / 3,
                   ate_after_gba_m=0.351 * 4 / 3,
                   reference=dict(frames_tracked=160, n_keyframes=32,
                                  loops=0, ate_frame79_m=0.079,
@@ -411,11 +440,25 @@ FACADE_SHARE = 0.03
 STEREO_FRAMES = 60
 STEREO_ORBIT_FRAC = 0.3 / 39 * (STEREO_FRAMES - 1) * 260.0 / 458.654
 STEREO_REF = dict(rectified_ate_m=0.0166, control_ate_m=0.0127)
+# the extraction check of the kernel phase: a flagship frame extracted on
+# the card and on the CPU, each sampling; a descriptor bit may differ only
+# where its two BRIEF samples tie (a gap below this, on the CPU's values:
+# the bound tests/test_torch_frontend.py holds the CPU port to against JAX)
+EXTRACT_TIE_GAP = 2e-5
+# path 17: the flagship main, examples/multi_inertial_euroc, from disk;
+# path 1's gates on its trajectory file. The reference main at this
+# configuration on the CPU (scripts/reference_examples.py flagship):
+# 160 rows, 18 keyframes, the IMU initialized, no loop, ATE (Horn scale)
+# 0.0334 m at scale 0.9975
+EXAMPLE_REF = dict(rows=160, keyframes=18, imu_init=True, loops=0,
+                   ate_m=0.0334, scale=0.9975)
+EXAMPLE_MIN_ROWS = 152
 PATHS = ("flagship", "recycle_blackout", "mono_inertial_euroc",
          "rgbd_inertial", "multi_tracker", "multi_tracker_mono",
          "mono_tracker", "rgbd_tracker", "mono_streaming", "host_lc",
          "mono_tracker_lc", "device_merge", "multi_tracker_atlas",
-         "mono_atlas", "system_imu_multi", "system_stereo_rectified")
+         "mono_atlas", "system_imu_multi", "system_stereo_rectified",
+         "example_multi_inertial")
 
 
 _FLAGSHIP = {}
@@ -2103,8 +2146,8 @@ def phase_multi_tracker(torch, dev, mc, card: str, stages: bool = False):
     `MultiTracker` (IMU_MULTI): 4 x KB8 at 640 x 480, 4 x 512 ORB features
     x 8 levels, 400 Hz IMU fed sample by sample, the first N_FRAMES_MT
     frames of path 1's scene (its gate is on the estimate made by frame
-    39; path 15 drives the same tracker through `System` over all 160
-    with the gate at frame 79).
+    39; path 15 drives the same tracker through `System` over 80 with
+    the gate at frame 79).
     The gates of the flagship's odometry run (PERF.md section 2)."""
     from openmavis_tpu_torch import scene
     from openmavis_tpu_torch.frontend import extractor
@@ -2800,7 +2843,7 @@ def phase_device_merge(torch, dev, mc, card: str, stages: bool = False):
     """Path 12: two sessions of path 1's configuration welded on the
     device. Session A streams frames 0-59 of path 1's scene; session B, a
     fresh tracker (seed 1) with its own world origin, streams frames
-    60-159 with A's map as `secondary_map` and `make_merge_step`'s
+    60-139 with A's map as `secondary_map` and `make_merge_step`'s
     defaults, and welds itself into A's map when it comes back to A's
     start (the orbit closes near frame 128). The launch counts are set to
     0 before A and read after B. A timer around `welding_ba_step` gives
@@ -2809,7 +2852,7 @@ def phase_device_merge(torch, dev, mc, card: str, stages: bool = False):
     from openmavis_tpu_torch.io import evaluation
     from openmavis_tpu_torch.pipeline import tracking
 
-    n, split = N_FRAMES, MERGE_SPLIT
+    n, split = N_FRAMES_MERGE, MERGE_SPLIT
     t0 = time.perf_counter()
     _, frames, _, t_wb, batches = flagship_sequence()
     print("device_merge scene rendered in %.1f s"
@@ -2823,7 +2866,7 @@ def phase_device_merge(torch, dev, mc, card: str, stages: bool = False):
     timer = StageTimer(torch)
     timer.wrap(tracking, "welding_ba_step")
     try:
-        run_b = drive(torch, mc, trb, frames[split:], batches[split:],
+        run_b = drive(torch, mc, trb, frames[split:n], batches[split:n],
                       stages, reset=False)
     finally:
         timer.restore()
@@ -2833,14 +2876,14 @@ def phase_device_merge(torch, dev, mc, card: str, stages: bool = False):
     ok_b = snap["ok"][:len(t_b)]
     res_b = evaluation.ate_rmse(t_b[ok_b], p_b[ok_b],
                                 np.arange(split, n) / scene.FPS_IN,
-                                t_wb[split:])
+                                t_wb[split:n])
     # both sessions, each replayed against its final map, in A's world
     t_a, _, p_a = tra.get_trajectory()
     ok_a = snap_a["ok"][:len(t_a)]
     joint = evaluation.ate_rmse(
         np.concatenate([t_a[ok_a], t_b[ok_b]]),
         np.concatenate([p_a[ok_a], p_b[ok_b]]),
-        np.arange(n) / scene.FPS_IN, t_wb)
+        np.arange(n) / scene.FPS_IN, t_wb[:n])
 
     def frames_with(event):
         return [f for f in run_b["lc_frames"] if event in f["events"]]
@@ -3163,15 +3206,16 @@ def phase_system_imu_multi(torch, dev, mc, card: str, stages: bool = False):
     Sensor.IMU_MULTI)` from a settings dict in the reference's OpenCV form
     (flat dotted keys, `IMU.T_b_cN` opencv-matrix dicts, no yaml) built
     from the flagship rig, path 5's bench values as tracker overrides, the
-    facade's own LoopCloser and Atlas, the live viewer on; path 1's
-    160-frame scene with the IMU given to `track_multi`, one HTTP client
+    facade's own LoopCloser and Atlas, the live viewer on; the first
+    N_FRAMES_SYSTEM frames of path 1's scene with the IMU given to
+    `track_multi`, one HTTP client
     attached for the last frame. Then the trajectory files, an Atlas
     checkpoint round trip, `run_global_ba()` and `print_time_stats()`."""
     from openmavis_tpu_torch import scene
     from openmavis_tpu_torch.pipeline import multi_tracking as mt
     from openmavis_tpu_torch.pipeline.system import Sensor, System
 
-    n = N_FRAMES
+    n = N_FRAMES_SYSTEM
     t0 = time.perf_counter()
     rig_np, frames, _, t_wb, batches = flagship_sequence()
     print("system_imu_multi scene rendered in %.1f s"
@@ -3436,6 +3480,211 @@ def phase_system_stereo_rectified(torch, dev, mc, card: str,
     return counts
 
 
+def extraction_check(torch, dev, card: str) -> dict:
+    """`extract_multicam` on the card against the CPU port: frame 0 of
+    path 1's scene (4 x 640 x 480, 512 features x 8 levels) with each
+    sampling. Gates: the keypoints (positions, levels, validity) equal;
+    every descriptor bit that differs is a BRIEF pair whose two samples
+    tie, a gap below EXTRACT_TIE_GAP on the CPU's sample values. Printed
+    beside: the pyramid levels' and the blurred stack's largest
+    difference, and the angles'."""
+    from openmavis_tpu_torch.frontend import extractor, orb, pyramid
+
+    _, frames, _, _, _ = flagship_sequence()
+    img = frames[0].astype(np.float32)
+    g_img, c_img = torch.as_tensor(img, device=dev), torch.as_tensor(img)
+    lv_g = pyramid.build_pyramid(g_img, 8, 1.2)
+    lv_c = pyramid.build_pyramid(c_img, 8, 1.2)
+    out = {"path": "extraction_card_vs_cpu", "card": card,
+           "shape": list(img.shape), "n_features": N_FEATURES,
+           "pyramid_max_abs_diff": [
+               float((a.cpu() - b).abs().max()) for a, b in zip(lv_g, lv_c)],
+           "tie_gap": EXTRACT_TIE_GAP}
+    checks = []
+    # detection is the same for both samplings
+    d = extractor.detect_multicam(c_img, extractor.OrbConfig(
+        n_features=N_FEATURES, n_levels=8))
+    dg = extractor.detect_multicam(g_img, extractor.OrbConfig(
+        n_features=N_FEATURES, n_levels=8))
+    blur_diff = float((dg["blurred"].cpu() - d["blurred"]).abs().max())
+    kp = d["kp"].reshape(-1, 2)
+    for sampling in ("patch", "stacked"):
+        cfg = extractor.OrbConfig(n_features=N_FEATURES, n_levels=8,
+                                  sampling=sampling)
+        t0 = time.perf_counter()
+        fg = extractor.extract_multicam(g_img, cfg)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        fc = extractor.extract_multicam(c_img, cfg)
+        angles = fc.angle.reshape(-1)
+        if sampling == "patch":
+            pb, ox, oy = orb.extract_patches(d["blurred"], d["lv_all"], kp)
+            vals = orb.patch_values(pb, kp, ox, oy, angles)
+        else:
+            vals = orb.stacked_values(d["blurred"], d["lv_all"], kp, angles)
+        gap = (vals[..., 0] - vals[..., 1]).abs().numpy()
+        same_kp = all(bool(torch.equal(getattr(fg, f).cpu(), getattr(fc, f)))
+                      for f in ("xy", "level", "valid"))
+        valid = fc.valid.numpy().reshape(-1)
+        flips = (fg.desc.cpu().numpy().reshape(-1, 256)
+                 != fc.desc.numpy().reshape(-1, 256))
+        ang = np.abs(fg.angle.cpu().numpy() - fc.angle.numpy()).reshape(-1)
+        ang = np.minimum(ang, 2 * np.pi - ang)[valid]
+        res = {"keypoints_equal": same_kp,
+               "valid": int(valid.sum()),
+               "bits_differing": int(flips.sum()),
+               "bits": int(valid.sum()) * 256,
+               "max_gap_at_differing_bits": (float(gap[flips].max())
+                                             if flips.any() else 0.0),
+               "angle_max_abs_diff_rad": float(ang.max()),
+               "blurred_stack_max_abs_diff": blur_diff,
+               "card_ms_first_call": card_ms}
+        out[sampling] = res
+        print("extraction %s, card against CPU: keypoints equal %s, %d of "
+              "%d descriptor bits differ, largest sample gap among them "
+              "%.3g (bound %.0e); angles within %.3g rad; blurred stack "
+              "within %.3g"
+              % (sampling, same_kp, res["bits_differing"], res["bits"],
+                 res["max_gap_at_differing_bits"], EXTRACT_TIE_GAP,
+                 res["angle_max_abs_diff_rad"], blur_diff))
+        checks += [(same_kp, f"{sampling}: keypoints equal"),
+                   (res["max_gap_at_differing_bits"] < EXTRACT_TIE_GAP,
+                    f"{sampling}: every differing bit a tie below "
+                    f"{EXTRACT_TIE_GAP:g}")]
+    emit(out)
+    gate("extraction card vs CPU", checks)
+    return out
+
+
+def phase_example_multi_inertial(torch, dev, mc, card: str,
+                                 stages: bool = False):
+    """Path 17: the flagship main as a user runs it from disk. Path 1's
+    160 frames are written in the EuRoC layout (mav0/cam0..cam3 PNGs with
+    zlib, mav0/imu0/data.csv at 400 Hz, a TUM ground truth) with a
+    settings file from `scene.system_settings` (the flagship rig: 4 x
+    KannalaBrandt8 at 640 x 480, 512 x 8 ORB, the bench's IMU noise), and
+    `examples.multi_inertial_euroc.main` runs on them in this process
+    with `--cams cam0,cam1,cam2,cam3 --lc-every 30 --max-kf 64
+    --max-mp 16384`: the streaming VI tracker with a host LoopCloser.
+    Gates (path 1's): `imu_init=True` in the main's output, at least
+    EXAMPLE_MIN_ROWS of 160 rows in its trajectory file, the ATE (Horn
+    scale) of that file <= 0.15 m with |scale - 1| <= 0.1, every frame
+    the loader decoded equal to the rendered frame as float32, both
+    kernels launched. Printed: the frame ms median and p90 from frame 10
+    on (a synchronized timer around `push`), the loops closed and the
+    reference main's figures (EXAMPLE_REF)."""
+    import contextlib
+    import io
+    import shutil
+    from openmavis_tpu_torch import scene
+    from openmavis_tpu_torch.examples import multi_inertial_euroc, scenes
+    from openmavis_tpu_torch.io import datasets, evaluation
+    from openmavis_tpu_torch.pipeline import streaming_vi
+
+    n = N_FRAMES
+    rig_np, frames, _, t_wb, batches = flagship_sequence()
+    root = os.path.join(REPO, "build", "chip_smoke_example")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    d = scenes.write_rig_scene(
+        root, frames, [s for _, b in batches for s in b], t_wb,
+        scene.system_settings(rig_np, N_FEATURES, 8, scene.NOISE_SIGMAS),
+        dt=1.0 / scene.FPS_IN)
+    write_s = time.perf_counter() - t0
+    out_path = os.path.join(root, "trajectory_tum.txt")
+    argv = [d["sequence"], "--settings", d["settings"], "--cams", d["cams"],
+            "--gt", d["gt"], "--out", out_path, "--lc-every", "30",
+            "--max-kf", "64", "--max-mp", "16384"]
+
+    # probes: every decoded frame against the rendered one, and a
+    # synchronized timer around each push
+    decoded = {"frames": 0, "mismatched": 0}
+    frame_ms, made = [], []
+    orig_frame = datasets.Sequence.frame
+    orig_push = streaming_vi.StreamingVITracker.push
+
+    def frame(self, i):
+        x = orig_frame(self, i)
+        decoded["frames"] += 1
+        if not np.array_equal(x, frames[i].astype(np.float32)):
+            decoded["mismatched"] += 1
+        return x
+
+    def push(self, *a, **kw):
+        if not made:
+            made.append(self)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        orig_push(self, *a, **kw)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+
+    err = io.StringIO()
+    datasets.Sequence.frame = frame
+    streaming_vi.StreamingVITracker.push = push
+    torch.cuda.synchronize()
+    mc.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            multi_inertial_euroc.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts = dict(mc.launches_by_shape)
+    finally:
+        datasets.Sequence.frame = orig_frame
+        streaming_vi.StreamingVITracker.push = orig_push
+    text = err.getvalue()
+    print(text, end="")
+    tr = made[0]
+    traj = np.loadtxt(out_path, ndmin=2)
+    res = evaluation.ate_rmse(traj[:, 0], traj[:, 1:4],
+                              np.arange(n) / scene.FPS_IN, t_wb,
+                              with_scale=True)
+    steady = np.asarray(frame_ms[10:])
+    out = {"path": "example_multi_inertial", "card": card,
+           "frames": n, "rows": int(len(traj)),
+           "imu_init_line": "imu_init=True" in text,
+           "n_keyframes": int(tr.n_kf),
+           "loop_closures": int(tr.loop_closer.n_loops),
+           "ate_rmse_m": float(res["rmse"]),
+           "ate_rmse_noscale_m": float(res["rmse_noscale"]),
+           "horn_scale": float(res["scale"]),
+           "frames_decoded": decoded["frames"],
+           "frames_mismatched": decoded["mismatched"],
+           "frame_ms_median": float(np.median(steady)),
+           "frame_ms_p90": float(np.percentile(steady, 90)),
+           "frame_ms_max": float(steady.max()),
+           "main_s": main_s, "scene_write_s": write_s,
+           "ate_lines": [x for x in text.splitlines() if "ATE RMSE" in x],
+           **launch_fields(counts),
+           "reference": EXAMPLE_REF}
+    emit(out)
+    print("example_multi_inertial: %d rows of %d, %d keyframes, %d loops, "
+          "ATE (Horn scale) %.5f m, scale %.5f; frame ms median %.1f / p90 "
+          "%.1f from frame 10; %d frames decoded, %d unequal; main %.1f s, "
+          "scene written in %.1f s; the reference main %s"
+          % (out["rows"], n, out["n_keyframes"], out["loop_closures"],
+             out["ate_rmse_m"], out["horn_scale"], out["frame_ms_median"],
+             out["frame_ms_p90"], out["frames_decoded"],
+             out["frames_mismatched"], main_s, write_s, EXAMPLE_REF))
+    by_entry = out["matcher_cuda_launches_by_entry"]
+    checks = [
+        (out["imu_init_line"], "imu_init=True in the main's output"),
+        (out["rows"] >= EXAMPLE_MIN_ROWS,
+         "rows >= %d" % EXAMPLE_MIN_ROWS),
+        (out["ate_rmse_m"] <= 0.15, "ATE (Horn scale) <= 0.15 m"),
+        (abs(out["horn_scale"] - 1.0) <= 0.1, "|horn_scale - 1| <= 0.1"),
+        (out["frames_decoded"] == n and out["frames_mismatched"] == 0,
+         "every frame decoded equal to the rendered frame"),
+        (by_entry["projection_best2"] >= 4 * EXAMPLE_MIN_ROWS
+         and by_entry["hamming_best2"] >= 1, "both kernels launched"),
+        (np.isfinite(traj).all(), "finite trajectory"),
+    ]
+    gate("example_multi_inertial path", checks)
+    return counts
+
+
 def phase_long(torch, dev, mc, card: str, out_dir: str) -> dict:
     """The reference package's long-run configuration on the port. No
     gates: a measurement. Progress goes to `out_dir`/long_progress.jsonl
@@ -3518,6 +3767,7 @@ def main() -> int:
         compare_variants(torch, dev, mc, argv[argv.index("--variants") + 1])
         return 0
     kernels = phase_kernel(torch, dev, mc)
+    extraction_check(torch, dev, card)
     if "--kernels-only" in argv:
         print(json.dumps({"kernels": kernels}))
         return 0
@@ -3551,6 +3801,7 @@ def main() -> int:
                 "mono_atlas": phase_mono_atlas,
                 "system_imu_multi": phase_system_imu_multi,
                 "system_stereo_rectified": phase_system_stereo_rectified,
+                "example_multi_inertial": phase_example_multi_inertial,
                 }[path](torch, dev, mc, card, stages=stages)
 
     # each path's launch counts, and the seconds it took

@@ -1,0 +1,87 @@
+"""Stereo EuRoC replay (port of `examples/stereo_euroc.py`; reference:
+Examples/Stereo/stereo_euroc.cc).
+
+Usage:
+    python -m openmavis_tpu_torch.examples.stereo_euroc <sequence_dir>
+        [--settings cfg.yaml] [--out trajectory_tum.txt]
+        [--gt groundtruth.txt] [--max-frames N] [--device cpu]
+
+<sequence_dir> is an EuRoC-format directory (mav0/cam0/data + cam1/data).
+Stereo rides the 2-camera rig path: the baseline lives in the rig
+extrinsics (T_b_c per camera) and depth comes from intra-rig
+triangulation.
+"""
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from .. import resolve_device
+from ..io import datasets, evaluation, settings as cfg_mod
+from ..pipeline import system
+from .common import add_device, add_viewer, system_kwargs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("sequence")
+    ap.add_argument("--settings", default=None)
+    ap.add_argument("--out", default="trajectory_tum.txt")
+    ap.add_argument("--gt", default=None)
+    ap.add_argument("--max-frames", type=int, default=0)
+    add_viewer(ap)
+    add_device(ap)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+
+    seq = datasets.load_euroc(args.sequence, cams=("cam0", "cam1"))
+    n = seq.n_frames if args.max_frames <= 0 else min(
+        args.max_frames, seq.n_frames)
+    print(f"loaded {seq.n_frames} stereo pairs; replaying {n}",
+          file=sys.stderr)
+
+    if args.settings:
+        # keep the RAW dict: System re-parses it
+        cfg = cfg_mod.load_settings(args.settings, device=dev)["raw"]
+    else:
+        cfg = cfg_mod.example_settings(n_cams=2)
+        img0 = seq.frame(0)[0]
+        cfg["Camera"]["width"] = img0.shape[1]
+        cfg["Camera"]["height"] = img0.shape[0]
+        # EuRoC stereo calibration (reference: Examples/Stereo/EuRoC.yaml):
+        # cam0/cam1 ideal-pinhole after rectification, 11 cm baseline
+        cfg["Camera1"].update(fx=458.654, fy=457.296, cx=367.215,
+                              cy=248.375)
+        cfg["Camera2"].update(fx=457.587, fy=456.134, cx=379.999,
+                              cy=255.238)
+        T = np.eye(4)
+        T[0, 3] = 0.11
+        cfg["Camera2"]["T_b_c"] = T.tolist()
+
+    slam = system.System(cfg, system.Sensor.STEREO,
+                         **system_kwargs(args, dev))
+    if slam.viewer is not None:
+        print(f"live viewer: {slam.viewer.url}", file=sys.stderr)
+    t0 = time.perf_counter()
+    for i in range(n):
+        imgs = seq.frame(i)
+        slam.track_stereo(imgs[0], imgs[1], float(seq.cam_times[i]))
+    dt = time.perf_counter() - t0
+    slam.save_trajectory_tum(args.out)
+    print(f"replayed {n} frames in {dt:.1f}s = {n / dt:.1f} fps",
+          file=sys.stderr)
+    print(f"trajectory -> {args.out}", file=sys.stderr)
+
+    if args.gt:
+        traj = np.loadtxt(args.out)
+        t_gt, p_gt = evaluation.load_ground_truth(args.gt)
+        res = evaluation.ate_rmse(traj[:, 0], traj[:, 1:4], t_gt, p_gt,
+                                  with_scale=False)
+        print(f"ATE RMSE: {res['rmse']:.4f} m (metric scale)",
+              file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -40,8 +40,8 @@ class OrbConfig:
     cell: int = 32
     topk_per_cell: int = 8
     border: int = 16
-    # the reference's "stacked" A/B path is not ported; "patch" is its
-    # default and the only path here
+    # "patch" (the default): one patch gather per keypoint; any other
+    # value takes the stacked per-tap gathers, as in the reference
     sampling: str = "patch"
 
     def per_level_budget(self):
@@ -81,11 +81,8 @@ def detect_multicam(images: torch.Tensor, cfg: OrbConfig = OrbConfig()):
 
     Returns dict(kp [C,K,2] level-local coords, response [C,K], lvid [K]
     index into `used`, valid [C,K], s2 [C,K], used [(level, image)], and
-    the orb.extract_patches inputs: the raw and blurred padded stacks
+    the descriptor inputs of both samplings: the raw and blurred padded stacks
     [C*L, H, W] and the per-keypoint stack index lv_all [C*K])."""
-    if cfg.sampling != "patch":
-        raise NotImplementedError(
-            "only the 'patch' descriptor sampling path is ported")
     C, h0, w0 = images.shape
     dev = images.device
     levels = pyramid.build_pyramid(images, cfg.n_levels, cfg.scale)
@@ -135,11 +132,16 @@ def extract_multicam(images: torch.Tensor,
     C, K = valid.shape
     dev = images.device
     kp_all = kp.reshape(C * K, 2)
-    patches, _, _ = orb.extract_patches(d["stack"], d["lv_all"], kp_all)
-    angles = orb.patch_angles(patches)
-    patches_b, oxb, oyb = orb.extract_patches(d["blurred"], d["lv_all"],
-                                              kp_all)
-    desc = orb.patch_describe(patches_b, kp_all, oxb, oyb, angles)
+    if cfg.sampling == "patch":
+        patches, _, _ = orb.extract_patches(d["stack"], d["lv_all"], kp_all)
+        angles = orb.patch_angles(patches)
+        patches_b, oxb, oyb = orb.extract_patches(d["blurred"], d["lv_all"],
+                                                  kp_all)
+        desc = orb.patch_describe(patches_b, kp_all, oxb, oyb, angles)
+    else:
+        angles = orb.keypoint_angles_stacked(d["stack"], d["lv_all"], kp_all)
+        desc = orb.describe_stacked(d["blurred"], d["lv_all"], kp_all,
+                                    angles)
     desc = desc.reshape(C, K, 256) * valid[..., None].to(torch.int8)
 
     scale_of = torch.tensor([cfg.scale ** lv for lv, _ in used],

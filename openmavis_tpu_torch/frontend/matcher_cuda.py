@@ -28,7 +28,9 @@ with no admissible target gives `(0, 300, 300)`):
 Both kernels pack the {0,1} int8 descriptor planes themselves: no torch op
 touches the descriptors between the caller and the launch.
 
-Dispatch: tensors on the CPU take the plain version; CUDA tensors launch
+Dispatch: tensors on the CPU take the plain version, over the rows that
+can have a match only (a mask row with an admissible column, a valid
+query: the others give `(0, 300, 300)` unsearched); CUDA tensors launch
 the kernel or raise. There is no other switch.
 """
 
@@ -196,6 +198,22 @@ def masked_best2_plain(d1: torch.Tensor, d2: torch.Tensor,
     return matcher.masked_best2(matcher.hamming_matrix(d1, d2), mask)
 
 
+def _on_rows(n: int, rows: torch.Tensor, search):
+    """(best_idx, best, second) [n] of a search run on `rows` only; every
+    other row has no admissible column and gets (0, 300, 300), as the
+    plain version gives it. The CPU route of both wrappers: a slab's
+    empty rows then cost nothing (one host read of the row set)."""
+    out = (torch.zeros(n, dtype=torch.int32, device=rows.device),
+           torch.full((n,), matcher._INVALID, dtype=torch.int32,
+                      device=rows.device),
+           torch.full((n,), matcher._INVALID, dtype=torch.int32,
+                      device=rows.device))
+    if rows.numel():
+        for o, r in zip(out, search(rows)):
+            o[rows] = r
+    return out
+
+
 def _check_mask(n: int, m: int, mask: torch.Tensor) -> None:
     if mask.shape != (n, m):
         raise ValueError(f"mask {tuple(mask.shape)} does not match {n}x{m}")
@@ -216,7 +234,8 @@ def masked_best2_fused(d1: torch.Tensor, d2: torch.Tensor,
     _check_mask(n, m, mask)
     _check_cols(m)
     if _one_device((d1, d2, mask)) == "cpu":
-        return masked_best2_plain(d1, d2, mask)
+        return _on_rows(n, torch.nonzero(mask.any(dim=1))[:, 0],
+                        lambda r: masked_best2_plain(d1[r], d2, mask[r]))
     s1, s2 = _row_stride("d1", d1), _row_stride("d2", d2)
     out = _outputs(n, d1.device)
     with _current(d1.device):
@@ -301,9 +320,13 @@ def projection_best2(proj_xy, pred_level, radius, d_query, valid_query,
                              f"{tuple(radius.shape)}")
         tensors.append(radius)
     if _one_device(tensors) == "cpu":
-        return projection_best2_plain(proj_xy, pred_level, radius, d_query,
-                                      valid_query, feat_xy, feat_level,
-                                      feat_desc, feat_valid)
+        def search(r):
+            rad = (radius[r] if isinstance(radius, torch.Tensor)
+                   and radius.ndim else radius)
+            return projection_best2_plain(
+                proj_xy[r], pred_level[r], rad, d_query[r], valid_query[r],
+                feat_xy, feat_level, feat_desc, feat_valid)
+        return _on_rows(n, torch.nonzero(valid_query)[:, 0], search)
     if isinstance(radius, torch.Tensor):
         r = radius.to(torch.float32)          # no copy when it is f32
         r_ptr, r_all = r.data_ptr(), 0.0

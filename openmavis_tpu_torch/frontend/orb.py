@@ -1,10 +1,15 @@
-"""Oriented BRIEF, patch formulation (port of the patch path of
-`openmavis_tpu/frontend/orb.py`; reference: IC_Angle + computeOrbDescriptor,
-src/ORBextractor.cc:19-100).
+"""Oriented BRIEF (port of `openmavis_tpu/frontend/orb.py`; reference:
+IC_Angle + computeOrbDescriptor, src/ORBextractor.cc:19-100).
 
-Each keypoint's 31x32 patch is gathered once; the intensity-centroid angle
-is a weight contraction over it, and the rotated-BRIEF bilinear taps are
-separable triangle-kernel contractions (exact bilinear interpolation).
+Two formulations, as in the reference package:
+* patch (`OrbConfig.sampling="patch"`, the default): each keypoint's 31x32
+  patch is gathered once; the intensity-centroid angle is a weight
+  contraction over it, and the rotated-BRIEF bilinear taps are separable
+  triangle-kernel contractions (exact bilinear interpolation);
+* stacked (`sampling="stacked"`): the moment taps and the four bilinear
+  taps of every pattern point are gathered one by one from the padded
+  pyramid stack (`keypoint_angles_stacked`, `describe_stacked`), with the
+  single-image forms `keypoint_angles` and `describe` beside them.
 The descriptor pattern is the reference package's seeded Gaussian pattern.
 """
 
@@ -24,6 +29,53 @@ def _circular_mask(radius: int) -> np.ndarray:
     return (x * x + y * y <= radius * radius).astype(np.float32)
 
 
+def moment_kernels(radius: int = PATCH_RADIUS) -> np.ndarray:
+    """[2, 1, 2r+1, 2r+1] conv kernels computing (m10, m01) of the patch."""
+    y, x = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    mask = _circular_mask(radius)
+    kx = (x * mask).astype(np.float32)
+    ky = (y * mask).astype(np.float32)
+    return np.stack([kx[None], ky[None]], axis=0)
+
+
+def orientation_maps(img: torch.Tensor, radius: int = PATCH_RADIUS):
+    """[H, W] -> (m10 [H, W], m01 [H, W]) dense patch moments (a
+    correlation with zero padding, as the reference's conv)."""
+    k = torch.as_tensor(moment_kernels(radius), device=img.device)
+    out = torch.nn.functional.conv2d(img[None, None], k, padding=radius)
+    return out[0, 0], out[0, 1]
+
+
+def _moment_weights(radius: int):
+    """Flattened (wx [P], wy [P], offsets dy,dx [P, 2]) of the circular
+    patch."""
+    y, x = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    mask = _circular_mask(radius)
+    wx = (x * mask).reshape(-1).astype(np.float32)
+    wy = (y * mask).reshape(-1).astype(np.float32)
+    off = np.stack([y.reshape(-1), x.reshape(-1)], axis=-1).astype(np.int32)
+    return wx, wy, off
+
+
+def keypoint_angles(img: torch.Tensor, xy: torch.Tensor,
+                    radius: int = PATCH_RADIUS) -> torch.Tensor:
+    """Intensity-centroid angle (radians) for keypoints [K, 2] (x, y) of
+    one [H, W] image: each keypoint's clipped 31x31 patch against the
+    moment weights."""
+    h, w = img.shape
+    wx, wy, off = _moment_weights(radius)
+    dev = img.device
+    wxy = torch.as_tensor(np.stack([wx, wy], 1), device=dev)     # [P, 2]
+    off = torch.as_tensor(off, dtype=torch.int64, device=dev)
+    xi = torch.clamp(xy[:, 0].to(torch.int64), 0, w - 1)
+    yi = torch.clamp(xy[:, 1].to(torch.int64), 0, h - 1)
+    py = torch.clamp(yi[:, None] + off[None, :, 0], 0, h - 1)    # [K, P]
+    px = torch.clamp(xi[:, None] + off[None, :, 1], 0, w - 1)
+    patch = img.reshape(-1)[py * w + px]
+    m = patch @ wxy
+    return torch.atan2(m[:, 1], m[:, 0])
+
+
 def make_pattern(seed: int = 1234, n_bits: int = N_BITS,
                  sigma: float = 31.0 / 5.0,
                  max_norm: float = PATTERN_RADIUS) -> np.ndarray:
@@ -36,6 +88,45 @@ def make_pattern(seed: int = 1234, n_bits: int = N_BITS,
 
 
 _PATTERN = make_pattern()
+
+
+def _rotated_pattern(xy: torch.Tensor, angles: torch.Tensor):
+    """Sample points (sx, sy) [K, 256, 2] of the pattern rotated by each
+    keypoint's angle, p' = R(theta) p, about its keypoint."""
+    pat = torch.as_tensor(_PATTERN, device=xy.device)       # [256, 2, 2]
+    c, s = torch.cos(angles), torch.sin(angles)
+    px_, py_ = pat[..., 0], pat[..., 1]
+    rx = c[:, None, None] * px_[None] - s[:, None, None] * py_[None]
+    ry = s[:, None, None] * px_[None] + c[:, None, None] * py_[None]
+    return xy[:, None, None, 0] + rx, xy[:, None, None, 1] + ry
+
+
+def _bilinear(img: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of an [H, W] image at float coords (clamped)."""
+    h, w = img.shape
+    x = torch.clamp(x, 0.0, w - 1.001)
+    y = torch.clamp(y, 0.0, h - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = x - x0
+    fy = y - y0
+    flat = img.reshape(-1)
+    idx = y0 * w + x0
+    v00, v01 = flat[idx], flat[idx + 1]
+    v10, v11 = flat[idx + w], flat[idx + w + 1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
+
+
+def describe(img_blur: torch.Tensor, xy: torch.Tensor,
+             angles: torch.Tensor) -> torch.Tensor:
+    """Rotated-BRIEF bits [K, 256] int8 {0, 1} for keypoints xy [K, 2] of
+    one blurred [H, W] level image, angles [K] in radians."""
+    sx, sy = _rotated_pattern(xy, angles)                   # [K, 256, 2]
+    vals = _bilinear(img_blur, sx.reshape(-1), sy.reshape(-1))
+    vals = vals.reshape(sx.shape)
+    return (vals[..., 0] < vals[..., 1]).to(torch.int8)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -131,4 +222,85 @@ def patch_values(patches_blur: torch.Tensor, xy: torch.Tensor,
 def patch_describe(patches_blur, xy, ox, oy, angles) -> torch.Tensor:
     """Rotated-BRIEF bits [K, 256] int8 {0, 1} from blurred patches."""
     vals = patch_values(patches_blur, xy, ox, oy, angles)
+    return (vals[..., 0] < vals[..., 1]).to(torch.int8)
+
+
+def _moment_weights_rows(radius: int):
+    """[2r+1, 4*ceil((2r+1)/4)] (x, y) moment weights of the circular
+    patch, zero-padded in the column dim to a multiple of 4 (the run-4
+    granularity of keypoint_angles_stacked)."""
+    n = 2 * radius + 1
+    cols = -(-n // 4) * 4
+    y, x = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    mask = _circular_mask(radius)
+    wx = np.zeros((n, cols), np.float32)
+    wy = np.zeros((n, cols), np.float32)
+    wx[:, :n] = x * mask
+    wy[:, :n] = y * mask
+    return wx, wy
+
+
+def keypoint_angles_stacked(stack: torch.Tensor, lv: torch.Tensor,
+                            xy: torch.Tensor,
+                            radius: int = PATCH_RADIUS) -> torch.Tensor:
+    """IC angles for keypoints spread across a padded pyramid stack.
+
+    stack: [L, H0, W0] (each level edge-padded to the level-0 shape);
+    lv: [K] level index per keypoint; xy: [K, 2] level-local coords.
+
+    The reference reads each patch row as runs of 4 consecutive pixels
+    from a [L*h*w, 4] table of shifted copies of the stack. The run
+    starts are clipped to w - 4, so every run lies inside its row and the
+    four taps are read here at idx .. idx + 3 directly: the same values,
+    with the same right-edge shift of the clipped runs."""
+    L, h, w = stack.shape
+    n = 2 * radius + 1
+    n4 = -(-n // 4)
+    dev = stack.device
+    wx, wy = _moment_weights_rows(radius)
+    wxy = torch.as_tensor(np.stack([wx, wy], -1), device=dev)  # [n, 4n4, 2]
+    xi = torch.clamp(xy[:, 0].to(torch.int64), 0, w - 1)
+    yi = torch.clamp(xy[:, 1].to(torch.int64), 0, h - 1)
+    dy = torch.arange(-radius, radius + 1, device=dev)
+    dx0 = -radius + 4 * torch.arange(n4, device=dev)
+    base = (lv.to(torch.int64) * (h * w))[:, None, None]
+    rows = torch.clamp(yi[:, None] + dy[None, :], 0, h - 1)      # [K, n]
+    cols = torch.clamp(xi[:, None] + dx0[None, :], 0, w - 4)     # [K, n4]
+    idx = base + rows[:, :, None] * w + cols[:, None, :]         # [K, n, n4]
+    taps = idx[..., None] + torch.arange(4, device=dev)          # [.., 4]
+    patch = stack.reshape(-1)[taps].reshape(xy.shape[0], n, n4 * 4)
+    m = torch.einsum("knc,ncj->kj", patch, wxy)
+    return torch.atan2(m[:, 1], m[:, 0])
+
+
+def stacked_values(stack_blur: torch.Tensor, lv: torch.Tensor,
+                   xy: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Bilinear rotated-BRIEF samples [K, 256, 2] from a padded blurred
+    pyramid stack [L, h, w] (see keypoint_angles_stacked).
+
+    The reference reads the four taps as one row of a [L*h*w, 4] table of
+    shifted copies of the stack. The sample points are clipped to
+    [0, w - 1.001] x [0, h - 1.001], so idx + 1, idx + w and idx + w + 1
+    stay inside the keypoint's level and are read here directly."""
+    L, h, w = stack_blur.shape
+    sx, sy = _rotated_pattern(xy, angles)
+    sx = torch.clamp(sx, 0.0, w - 1.001)
+    sy = torch.clamp(sy, 0.0, h - 1.001)
+    x0 = torch.floor(sx).to(torch.int64)
+    y0 = torch.floor(sy).to(torch.int64)
+    fx = sx - x0
+    fy = sy - y0
+    idx = (lv.to(torch.int64) * (h * w))[:, None, None] + y0 * w + x0
+    flat = stack_blur.reshape(-1)
+    v00, v01 = flat[idx], flat[idx + 1]
+    v10, v11 = flat[idx + w], flat[idx + w + 1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
+
+
+def describe_stacked(stack_blur: torch.Tensor, lv: torch.Tensor,
+                     xy: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotated-BRIEF bits [K, 256] int8 {0, 1} over a padded blurred
+    pyramid stack, matching `describe`."""
+    vals = stacked_values(stack_blur, lv, xy, angles)
     return (vals[..., 0] < vals[..., 1]).to(torch.int8)

@@ -233,8 +233,19 @@ def _best_per_keyframe(m: ms.MapState, desc, t_valid):
     """[N, K] int32: each query descriptor's smallest Hamming distance
     among the features of every keyframe that `t_valid` [K, F] admits
     (1 << 20 where none). One dense product against all K*F keyframe
-    features."""
+    features; on the CPU against the keyframes with an admitted feature
+    only (the others give 1 << 20 unsearched)."""
     K, F = m.kf_obs.shape
+    ks = (torch.nonzero(t_valid.any(dim=1))[:, 0]
+          if desc.device.type == "cpu" else None)
+    if ks is not None and ks.numel():
+        dist = matcher.hamming_matrix(
+            desc, m.kf_desc[ks].reshape(-1, 256)).reshape(-1, len(ks), F)
+        best = torch.where(t_valid[ks][None], dist, 1 << 20).min(
+            dim=2).values
+        out = torch.full((desc.shape[0], K), 1 << 20, dtype=best.dtype)
+        out[:, ks] = best
+        return out
     dist = matcher.hamming_matrix(
         desc, m.kf_desc.reshape(K * F, 256)).reshape(-1, K, F)
     dist = torch.where(t_valid[None], dist, 1 << 20)
@@ -264,6 +275,35 @@ def cull_landmarks(m: ms.MapState, current_slot: int,
     return m._replace(mp_valid=m.mp_valid & ~bad)
 
 
+def _nearest_old(m: ms.MapState, new_ids, old_mask, old_ids,
+                 rel_dist_th: float, desc_th: int):
+    """(best id [N] int32, its distance key [N] or _INVALID): each new
+    landmark's nearest old one inside the distance and descriptor gates,
+    ties to the smallest id. Over the whole slab, or with `old_ids` (the
+    CPU route) over those landmarks only; the answer is the same where a
+    candidate exists (elsewhere the id is unused)."""
+    pos_new = m.mp_pos[new_ids]
+    if old_ids is None:
+        pos_old, desc_old, ok_old = m.mp_pos, m.mp_desc, old_mask
+    else:
+        if old_ids.numel() == 0:
+            n = new_ids.shape[0]
+            return (torch.zeros(n, dtype=torch.int32),
+                    torch.full((n,), matcher._INVALID, dtype=torch.int32))
+        pos_old, desc_old = m.mp_pos[old_ids], m.mp_desc[old_ids]
+        ok_old = old_mask[old_ids]
+    d3 = torch.linalg.norm(pos_new[:, None, :] - pos_old[None, :, :], dim=-1)
+    gate = rel_dist_th * torch.clamp(torch.linalg.norm(pos_new, dim=-1),
+                                     min=1.0)[:, None]
+    near = (d3 < gate) & ok_old[None, :]
+    hd = matcher.hamming_matrix(m.mp_desc[new_ids], desc_old)
+    cand = near & (hd < desc_th)
+    bi, bv = matcher.masked_argmin((d3 * 1000.0).to(torch.int32), cand)
+    if old_ids is not None:
+        bi = old_ids[bi].to(torch.int32)
+    return bi, bv
+
+
 def fuse_new_landmarks(m: ms.MapState, slot: int, cap: int = 512,
                        rel_dist_th: float = 0.02, desc_th: int = 40):
     """Merge landmarks spawned at `slot` that duplicate older ones: each
@@ -276,16 +316,10 @@ def fuse_new_landmarks(m: ms.MapState, slot: int, cap: int = 512,
     old_mask = m.mp_valid & (m.mp_first_kf != slot)
     new_ids = compact_indices(new_mask, cap, M - 1)
     is_real = new_mask[new_ids]
-
-    pos_new = m.mp_pos[new_ids]
-    d3 = torch.linalg.norm(pos_new[:, None, :] - m.mp_pos[None, :, :],
-                           dim=-1)
-    gate = rel_dist_th * torch.clamp(torch.linalg.norm(pos_new, dim=-1),
-                                     min=1.0)[:, None]
-    near = (d3 < gate) & old_mask[None, :]
-    hd = matcher.hamming_matrix(m.mp_desc[new_ids], m.mp_desc)
-    cand = near & (hd < desc_th)
-    bi, bv = matcher.masked_argmin((d3 * 1000.0).to(torch.int32), cand)
+    old_ids = (torch.nonzero(old_mask)[:, 0]
+               if m.mp_pos.device.type == "cpu" else None)
+    bi, bv = _nearest_old(m, new_ids, old_mask, old_ids, rel_dist_th,
+                          desc_th)
     dup = is_real & (bv < matcher._INVALID)
 
     tgt = torch.where(dup, new_ids, M - 1)

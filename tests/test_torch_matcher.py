@@ -401,3 +401,90 @@ def test_default_device_is_the_card(entry):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+@pytest.mark.parametrize("name", ["96x200", "sparse_rows", "all_masked"])
+def test_cpu_route_equals_the_plain_version(name):
+    """On the CPU the wrappers search only the rows that can match; the
+    result equals the plain version's over every row, exactly."""
+    if name == "sparse_rows":
+        rng = np.random.RandomState(3)
+        d1, d2 = _desc(rng, 300), _desc(rng, 120)
+        mask = rng.rand(300, 120) > 0.7
+        mask[rng.rand(300) > 0.1] = False          # most rows empty
+    else:
+        d1, d2, mask = _case(name)
+    d1, d2, mask = (torch.as_tensor(x) for x in (d1, d2, mask))
+    for a, b in ((tmc.masked_best2_fused(d1, d2, mask),
+                  tmc.masked_best2_plain(d1, d2, mask)),
+                 (tmc.masked_best2_fused(d2, d1, mask.T),
+                  tmc.masked_best2_plain(d2, d1, mask.T))):
+        for g, r in zip(a, b):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+    for pname in PROJ_CASES:
+        args = _to(_proj_case(pname), torch.as_tensor)
+        if name == "sparse_rows":
+            args[4] = args[4] & (torch.arange(args[4].shape[0]) % 5 == 0)
+        for g, r in zip(tmc.projection_best2(*args),
+                        tmc.projection_best2_plain(*args)):
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+def test_best_per_keyframe_cpu_route():
+    """`tracking._best_per_keyframe` on the CPU searches only keyframes
+    with an admitted feature; the result equals the dense product's."""
+    from openmavis_tpu_torch.pipeline import tracking
+    from openmavis_tpu_torch.slam_map import map_state as ms
+    g = torch.Generator().manual_seed(0)
+    m = ms.allocate(8, 64, 128, device="cpu")
+    m = m._replace(kf_desc=(torch.rand(8, 64, 256, generator=g)
+                            < 0.5).to(torch.int8))
+    desc = (torch.rand(30, 256, generator=g) < 0.5).to(torch.int8)
+    for empty in (False, True):
+        tv = torch.rand(8, 64, generator=g) < 0.5
+        tv[3] = tv[5] = False
+        if empty:
+            tv[:] = False
+        got = tracking._best_per_keyframe(m, desc, tv)
+        dense = tm.hamming_matrix(desc, m.kf_desc.reshape(-1, 256))
+        ref = torch.where(tv[None], dense.reshape(-1, 8, 64),
+                          1 << 20).min(dim=2).values
+        assert got.dtype == ref.dtype
+        assert torch.equal(got, ref)
+
+
+def test_nearest_old_cpu_route():
+    """`tracking._nearest_old` over the old landmarks only (the CPU route
+    of `fuse_new_landmarks`) equals the search over the whole slab where
+    a candidate exists, ties included."""
+    from openmavis_tpu_torch.pipeline import tracking
+    from openmavis_tpu_torch.slam_map import map_state as ms
+    g = torch.Generator().manual_seed(1)
+    M = 400
+    m = ms.allocate(4, 16, M, device="cpu")
+    pos = torch.rand(M, 3, generator=g) * 4.0
+    pos[200:260] = pos[100:160] + 0.01           # near duplicates
+    pos[300] = pos[301] = pos[120] + 0.005       # a tie between two olds
+    desc = (torch.rand(M, 256, generator=g) < 0.5).to(torch.int8)
+    desc[200:260] = desc[100:160]
+    desc[300] = desc[301] = desc[120]
+    valid = torch.rand(M, generator=g) < 0.8
+    valid[100:160] = valid[300] = valid[301] = True
+    first = torch.zeros(M, dtype=torch.int32)
+    first[200:260] = 3
+    first[120] = 3
+    m = m._replace(mp_pos=pos, mp_desc=desc, mp_valid=valid,
+                   mp_first_kf=first)
+    old_mask = valid & (first != 3)
+    new_ids = torch.nonzero(valid & (first == 3))[:, 0]
+    for old_ids in (torch.nonzero(old_mask)[:, 0],
+                    torch.zeros(0, dtype=torch.int64)):
+        mask = old_mask if old_ids.numel() else torch.zeros_like(old_mask)
+        bi, bv = tracking._nearest_old(m, new_ids, mask, old_ids, 0.02, 40)
+        ri, rv = tracking._nearest_old(m, new_ids, mask, None, 0.02, 40)
+        assert bi.dtype == ri.dtype == torch.int32
+        assert torch.equal(bv, rv)
+        hit = rv < tm._INVALID
+        assert torch.equal(bi[hit], ri[hit])
+        assert (int(hit.sum()) > 40) == bool(old_ids.numel())

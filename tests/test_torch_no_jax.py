@@ -1,6 +1,8 @@
 """The PyTorch port imports neither jax nor the JAX package: the GPU
 machine it runs on has no jax installed. Nor does any of its modules import
-PyYAML or Pillow when it is imported: that machine may lack them too."""
+PyYAML or Pillow when it is imported: that machine may lack them too. The
+example mains are modules of the port (`openmavis_tpu_torch.examples`)
+and are held to the same."""
 
 import pathlib
 import subprocess
@@ -23,8 +25,23 @@ def test_port_imports_without_jax():
         "          'utils.timing', 'io.trajectory', 'io.serialization',\n"
         "          'io.settings', 'io.datasets', 'io.native_loader',\n"
         "          'frontend.rectify', 'pipeline.viewer',\n"
-        "          'pipeline.system'):\n"
+        "          'pipeline.system', 'examples.scenes'):\n"
         "    assert 'openmavis_tpu_torch.' + n in names, n\n"
+        "mains = ('mono_euroc', 'mono_kitti', 'mono_tum',\n"
+        "         'mono_inertial_euroc', 'mono_inertial_tum_vi',\n"
+        "         'stereo_euroc', 'stereo_kitti', 'stereo_inertial_euroc',\n"
+        "         'stereo_inertial_tum_vi', 'rgbd_tum', 'rgbd_inertial',\n"
+        "         'multi_inertial_euroc', 'multisession_euroc',\n"
+        "         'train_vocab')\n"
+        "for n in mains:\n"
+        "    m = importlib.import_module(\n"
+        "        'openmavis_tpu_torch.examples.' + n)\n"
+        "    assert callable(m.main), n\n"
+        "from openmavis_tpu_torch.frontend import orb\n"
+        "for n in ('moment_kernels', 'orientation_maps', 'keypoint_angles',\n"
+        "          'describe', 'keypoint_angles_stacked',\n"
+        "          'describe_stacked'):\n"
+        "    assert hasattr(orb, n), n\n"
         "from openmavis_tpu_torch.pipeline import multi_tracking\n"
         "for n in ('MultiTracker', 'MultiTrackerConfig'):\n"
         "    assert hasattr(multi_tracking, n), n\n"

@@ -343,3 +343,90 @@ def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsystem.System(_mono_settings(), S.MONOCULAR)
+
+
+# ---------------------------------------------------------------------------
+# a uint8 frame (the reference's documented input is float32,
+# openmavis_tpu/pipeline/multi_tracking.py:850-852; the port casts on its
+# device)
+# ---------------------------------------------------------------------------
+
+U8_W, U8_H = 256, 192
+
+
+def _u8_frames(n=2):
+    rig_np = scene.build_rig("kb8", U8_W, U8_H)
+    R_wb, t_wb = synthetic.orbit_trajectory(4, radius=6.0, frac=0.02)
+    imgs = scene.render_rig_sequence(rig_np, R_wb[:n], t_wb[:n], U8_W, U8_H)
+    return rig_np, np.clip(imgs, 0, 255).astype(np.uint8)
+
+
+def _recorded_ext(tracker):
+    feats = []
+    ext = tracker._ext
+
+    def rec(images):
+        f = ext(images)
+        feats.append(f)
+        return f
+
+    tracker._ext = rec
+    return feats
+
+
+def _assert_same_state(a, b):
+    fa, fb = a.features, b.features
+    assert len(fa) == len(fb) > 0
+    for x, y in zip(fa, fb):
+        for name in x._fields:
+            assert torch.equal(getattr(x, name), getattr(y, name)), name
+    for name in a.tracker.map._fields:
+        assert torch.equal(getattr(a.tracker.map, name),
+                           getattr(b.tracker.map, name)), name
+    for x, y in zip(a.tracker.get_trajectory(), b.tracker.get_trajectory()):
+        np.testing.assert_array_equal(x, y)
+    assert a.tracker.state == b.tracker.state
+
+
+class _Run:
+    def __init__(self, tracker):
+        self.tracker = tracker
+        self.features = _recorded_ext(tracker)
+
+
+@pytest.mark.parametrize("entry", ["system_track_multi",
+                                   "multi_tracker_process_frame"])
+def test_uint8_frames_equal_float32(entry):
+    """The same frames as uint8 and as float32 give the same features and
+    the same state after the first frame (the stereo rig init) and the
+    second (the first tracked frame)."""
+    from openmavis_tpu_torch.pipeline import multi_tracking as tmt
+    rig_np, frames = _u8_frames()
+    settings = scene.system_settings(rig_np, 192, 3, w=U8_W, h=U8_H)
+    runs = []
+    for dtype in (np.uint8, np.float32):
+        if entry == "system_track_multi":
+            slam = tsystem.System(settings, S.MULTI, seed=3,
+                                  tracker_overrides=dict(OVERRIDES,
+                                                         max_mp=2048),
+                                  device="cpu")
+            run = _Run(slam.tracker)
+            for i, img in enumerate(frames):
+                slam.track_multi(img.astype(dtype), i / scene.FPS_IN)
+        else:
+            from openmavis_tpu_torch.io import settings as tset
+            s = tset.load_settings(settings, device="cpu")
+            cfg = tmt.MultiTrackerConfig(
+                img_w=U8_W, img_h=U8_H, n_cams=4, orb=s["orb"],
+                max_kf=8, max_mp=2048, use_imu=False)
+            tr = tmt.MultiTracker(s["rig"], cfg, seed=3, device="cpu")
+            run = _Run(tr)
+            for i, img in enumerate(frames):
+                arr = img.astype(dtype)
+                tr.process_frame(torch.as_tensor(arr) if i else arr,
+                                 i / scene.FPS_IN)
+        runs.append(run)
+    assert frames.dtype == np.uint8
+    assert int(runs[0].features[0].valid.sum()) > 100
+    assert int(runs[0].tracker.map.n_mp) > 50
+    _assert_same_state(*runs)
