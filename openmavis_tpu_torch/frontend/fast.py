@@ -48,10 +48,25 @@ def _word_has_arc(x: torch.Tensor) -> torch.Tensor:
     return r != 0
 
 
+def _arc_word_cpu(mask16: torch.Tensor) -> torch.Tensor:
+    """`_arc_word` by 16 int32 shifts of [...]-sized planes (the [16, ...]
+    int64 product of the dense form dominates on the CPU)."""
+    w = mask16[0].to(torch.int32)
+    for i in range(1, 16):
+        w |= mask16[i].to(torch.int32) << i
+    return w.to(torch.int64)
+
+
 def _score_from_diff(diff: torch.Tensor, threshold: float,
                      inside: torch.Tensor) -> torch.Tensor:
     bright = diff > threshold
     dark = diff < -threshold
+    if diff.device.type == "cpu":
+        return _score_from_diff_cpu(diff, threshold, bright, dark, inside)
+    return _score_from_diff_dense(diff, threshold, bright, dark, inside)
+
+
+def _score_from_diff_dense(diff, threshold, bright, dark, inside):
     is_corner = (_word_has_arc(_arc_word(bright))
                  | _word_has_arc(_arc_word(dark)))
     zero = torch.zeros((), dtype=diff.dtype, device=diff.device)
@@ -59,6 +74,28 @@ def _score_from_diff(diff: torch.Tensor, threshold: float,
     excess_d = torch.sum(torch.where(dark, -diff - threshold, zero), dim=0)
     score = torch.maximum(excess_b, excess_d)
     return torch.where(is_corner & inside, score, zero)
+
+
+def _score_from_diff_cpu(diff, threshold, bright, dark, inside):
+    """The CPU route of `_score_from_diff`: the same score, exactly, with
+    the arc words packed plane by plane and the excess sums taken over
+    the corner pixels only. torch's CPU sum over dim 0 adds the 16 planes
+    in order at every pixel but the last few of the whole tensor (outside
+    the border, never a corner), so the sums here add them in order."""
+    corner = ((_word_has_arc(_arc_word_cpu(bright))
+               | _word_has_arc(_arc_word_cpu(dark))) & inside).reshape(-1)
+    idx = torch.nonzero(corner)[:, 0]
+    d = diff.reshape(16, -1)[:, idx]
+    zero = torch.zeros((), dtype=diff.dtype)
+    exc_b = torch.where(d > threshold, d - threshold, zero)
+    exc_d = torch.where(d < -threshold, -d - threshold, zero)
+    sum_b, sum_d = exc_b[0], exc_d[0]
+    for i in range(1, 16):
+        sum_b = sum_b + exc_b[i]
+        sum_d = sum_d + exc_d[i]
+    score = torch.zeros(corner.shape, dtype=diff.dtype)
+    score[idx] = torch.maximum(sum_b, sum_d)
+    return score.reshape(diff.shape[1:])
 
 
 def _inside_mask(h: int, w: int, border: int, device) -> torch.Tensor:

@@ -211,12 +211,28 @@ def patch_values(patches_blur: torch.Tensor, xy: torch.Tensor,
                      0.0, _PW - 1.001)
     sy = torch.clamp(xy[:, 1:2] - oy[:, None].to(xy.dtype) + ry,
                      0.0, P - 1.001)
-    lanes = torch.arange(_PW, dtype=sx.dtype, device=sx.device)
-    rows_ = torch.arange(P, dtype=sy.dtype, device=sy.device)
-    wxw = torch.clamp(1.0 - (sx[..., None] - lanes).abs(), min=0.0)
-    wyw = torch.clamp(1.0 - (sy[..., None] - rows_).abs(), min=0.0)
+    return _sample(patches_blur, sx, sy).reshape(K, -1, 2)
+
+
+def _tent(s: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - (s - at).abs(), min=0.0)
+
+
+def _sample(patches_blur, sx, sy):
+    """Bilinear samples [K, 512] at (sx, sy) of patches [K, P, 32]. A tent
+    weight is nonzero only at floor(s) and floor(s) + 1: the two lane
+    weights are scattered into a [K, 512, 32] operand of one batched
+    product, and of each sample's rows only the two live ones are added
+    (equal, bit for bit, to tent weights over every lane and row)."""
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wxw = torch.zeros(sx.shape + (_PW,), dtype=sx.dtype,
+                      device=sx.device).scatter_(
+        -1, torch.stack([x0, x0 + 1], -1).to(torch.int64),
+        torch.stack([_tent(sx, x0), _tent(sx, x0 + 1)], -1))
     a = torch.bmm(wxw, patches_blur.transpose(1, 2))         # [K, 512, P]
-    return torch.sum(a * wyw, dim=-1).reshape(K, -1, 2)
+    rows = torch.stack([y0, y0 + 1], -1)
+    live = torch.gather(a, -1, rows.to(torch.int64))
+    return (live[..., 0] * _tent(sy, y0) + live[..., 1] * _tent(sy, y0 + 1))
 
 
 def patch_describe(patches_blur, xy, ox, oy, angles) -> torch.Tensor:

@@ -180,7 +180,7 @@ def bundle_adjust(state: BAState, obs: BAObservations, rig: RigParams,
                   prior=None, prior_idx: int = 0,
                   stages=(5, 10), lambda0: float = 1e-2,
                   chi2_th: float = robust.CHI2_2D,
-                  rows_per_kf: int | None = None):
+                  rows_per_kf: int | None = None, psum=None):
     """Window BA with landmark Schur elimination.
 
     pose_fixed [K] bool; point_fixed optional [M] bool; edges: temporal
@@ -189,13 +189,20 @@ def bundle_adjust(state: BAState, obs: BAObservations, rig: RigParams,
     declares the observation table as K contiguous blocks of that many
     rows (pose blocks then reduce by reshape-sum); a table on the CPU
     that is not so laid out raises ValueError.
+    `psum`: None, or a callable that sums a tensor over the ranks of a
+    group when `obs` is this rank's shard of the observations and the
+    state is replicated (`parallel.dist_ba.distributed_bundle_adjust`):
+    the visual terms are then summed over the group; the inertial terms
+    stay replicated and unreduced.
     Returns (state, obs_inlier [O] bool, final_chi2)."""
     D = 15 if edges is not None else 6
     K = state.R.shape[0]
     M = state.points.shape[0]
     O = obs.kf.shape[0]
     dt, dev = state.t.dtype, state.t.device
-    sorted_rows = rows_per_kf is not None and rows_per_kf * K == O
+    sorted_rows = (rows_per_kf is not None and rows_per_kf * K == O
+                   and psum is None)
+    _psum = psum if psum is not None else (lambda x: x)
     kf64 = obs.kf.to(torch.int64)
     if sorted_rows and kf64.device.type == "cpu" and not torch.equal(
             kf64, torch.arange(K).repeat_interleave(rows_per_kf)):
@@ -224,11 +231,14 @@ def bundle_adjust(state: BAState, obs: BAObservations, rig: RigParams,
         vgl = (Jlw.transpose(1, 2) @ r[..., None])[..., 0]
         vpl = (Jpw.transpose(1, 2) @ Jl).reshape(O, 18)
         pk = torch.zeros((K * M, 30), dtype=dt, device=dev).index_add_(
-            0, flat, torch.cat([vll, vgl, vpl], dim=-1)).reshape(K, M, 30)
+            0, flat, torch.cat([vll, vgl, vpl], dim=-1))
+        pk = _psum(pk).reshape(K, M, 30)
+        HppB = _psum(HppB)
+        gpB = _psum(gpB)
         Hll = pk[..., :9].sum(0).reshape(M, 3, 3)
         gl = pk[..., 9:12].sum(0)
         Hpl6 = pk[..., 12:].reshape(K, M, 6, 3).permute(0, 2, 1, 3)
-        chi = torch.sum(w * torch.sum(r * r, dim=-1))
+        chi = _psum(torch.sum(w * torch.sum(r * r, dim=-1)))
 
         idx = torch.arange(K, device=dev)
         if D == 6:

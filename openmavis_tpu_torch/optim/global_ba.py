@@ -6,6 +6,11 @@ Landmark blocks are inverted batched; the reduced camera system is applied
 as an operator (observation-indexed gathers/scatters, never materialized)
 and solved with block-Jacobi preconditioned conjugate gradients inside an
 LM loop. The inertial chain enters as per-edge [15,15] blocks.
+
+Distribution: every reduction of the operator goes through an optional
+`psum`, so the same body runs on one rank's shard of the observations
+(`parallel/dist_ba.py`); per CG step the collective is one [K, D] vector
+plus scalars.
 """
 
 from __future__ import annotations
@@ -30,8 +35,16 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
                          prior=None, prior_idx: int = 0,
                          stages=(5, 10), cg_iters: int = 24,
                          lambda0: float = 1e-2,
-                         chi2_th: float = robust.CHI2_2D):
+                         chi2_th: float = robust.CHI2_2D,
+                         psum=None, points_local: bool = False):
     """Same contract as ba.bundle_adjust, scaled to whole maps.
+
+    `psum`: None, or a callable that sums a tensor over the ranks of a
+    group when `obs` is this rank's shard of the observations; every
+    reduction is then summed over the group. `points_local=True` declares
+    the landmark axis sharded too, with every observation of a landmark on
+    its owner rank (`parallel.dist_ba.distributed_global_ba_lsharded`):
+    the landmark reductions (Hll, gl, lx) then stay on the shard.
     Returns (state, obs_inlier [O] bool, final_chi2)."""
     D = 15 if edges is not None else 6
     K = state.R.shape[0]
@@ -40,6 +53,13 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
     fixmask = pose_fixed[:, None].expand(K, D)
     kf64 = obs.kf.to(torch.int64)
     mp64 = obs.mp.to(torch.int64)
+
+    def _psum(x):
+        return x if psum is None else psum(x)
+
+    def _psum_l(x):
+        # landmark-axis reduction: none when the landmarks are sharded
+        return x if psum is None or points_local else psum(x)
 
     def scat_kf(vals):
         """[O, d] -> [K, d] sum by keyframe."""
@@ -56,6 +76,8 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
         Jpw = Jp * w[:, None, None]
         Hll = scat_mp(Jlw.transpose(1, 2) @ Jl)
         gl = scat_mp(_bmv(Jlw.transpose(1, 2), r))
+        Hll = _psum_l(Hll)
+        gl = _psum_l(gl)
         dll = torch.diagonal(Hll, dim1=-2, dim2=-1)
         Hll_d = Hll + torch.diag_embed(lam * torch.clamp(dll, min=1e-9)
                                        + 1e-9)
@@ -68,7 +90,9 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
         Hpp_blk = scat_kf((Jpw.transpose(1, 2) @ Jp).reshape(-1, 36)
                           ).reshape(K, 6, 6)
         gp6 = scat_kf(_bmv(Jpw.transpose(1, 2), r))
-        chi = torch.sum(w * torch.sum(r * r, dim=-1))
+        Hpp_blk = _psum(Hpp_blk)
+        gp6 = _psum(gp6)
+        chi = _psum(torch.sum(w * torch.sum(r * r, dim=-1)))
 
         gp = torch.zeros((K, D), dtype=dt, device=dev)
         gp[:, :6] = gp6
@@ -96,7 +120,7 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
         # reduced-system rhs b = gp - Hpl Hll^-1 gl
         u = _bmv(Hll_inv, gl)
         uo = _bmv(Jl, u[mp64])
-        corr = scat_kf(_bmv(Jpw.transpose(1, 2), uo))
+        corr = _psum(scat_kf(_bmv(Jpw.transpose(1, 2), uo)))
         b = gp.clone()
         b[:, :6] -= corr
         return (Jp, Jl, w), Hll_inv, HppD, iblocks, Hp_prior, b, gl, chi
@@ -106,11 +130,11 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
         Jp, Jl, w = terms
         x = torch.where(fixmask, torch.zeros_like(x), x)
         yo = _bmv(Jp, x[:, :6][kf64]) * w[:, None]           # [O,2]
-        hx = scat_kf(_bmv(Jp.transpose(1, 2), yo))
-        lx = scat_mp(_bmv(Jl.transpose(1, 2), yo))
+        hx = _psum(scat_kf(_bmv(Jp.transpose(1, 2), yo)))
+        lx = _psum_l(scat_mp(_bmv(Jl.transpose(1, 2), yo)))
         v = _bmv(Hll_inv, lx)
         vo = _bmv(Jl, v[mp64]) * w[:, None]
-        sx = scat_kf(_bmv(Jp.transpose(1, 2), vo))
+        sx = _psum(scat_kf(_bmv(Jp.transpose(1, 2), vo)))
         y = torch.zeros((K, D), dtype=dt, device=dev)
         y[:, :6] = hx - sx
         if D == 15:
@@ -157,7 +181,7 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
 
     def chi2_fn(st, active):
         r, _, _, w, _ = _visual_terms(st, obs, rig, active)
-        chi = torch.sum(w * torch.sum(r * r, dim=-1))
+        chi = _psum(torch.sum(w * torch.sum(r * r, dim=-1)))
         if D == 15:
             chi = chi + inertial_edge_blocks(st, edges)[-1]
             if prior is not None:
@@ -171,7 +195,7 @@ def global_bundle_adjust(state: BAState, obs: BAObservations,
         """dl = Hll^-1 (-gl - Hlp dx_p)."""
         Jp, Jl, w = terms
         yo = _bmv(Jp, dx_p[:, :6][kf64]) * w[:, None]
-        lx = scat_mp(_bmv(Jl.transpose(1, 2), yo))
+        lx = _psum_l(scat_mp(_bmv(Jl.transpose(1, 2), yo)))
         dl = _bmv(Hll_inv, -gl - lx)
         if point_fixed is not None:
             dl = torch.where(point_fixed[:, None], torch.zeros_like(dl), dl)

@@ -34,10 +34,10 @@ scalar, which reads it back to the host (a sync per decision).
 With `loop_closer=` the host-policy `loop_closing.LoopCloser` runs on the
 newest keyframe whenever the application calls `maybe_close_loop`.
 
-Not ported yet, raising NotImplementedError and queued in ROADMAP.md: the
-sharded global BA (`run_global_ba(mesh=...)`).
-`frames_per_dispatch > 1` (the reference's chunking of frames into one
-dispatch for its transport) is left out and raises too.
+`run_global_ba(mesh=...)` shards the whole-map solve over the ranks of a
+process group (`parallel/`). `frames_per_dispatch > 1` (the reference's
+chunking of frames into one dispatch for its transport) is left out and
+raises NotImplementedError.
 
 Reference parity map: per-frame flow Tracking::GrabImageMulti
 src/Tracking.cc:1410; IMU preintegration :1625; prediction :1723; VI pose
@@ -66,6 +66,7 @@ from ..imu import preintegration as pre_mod
 from ..optim import pose_opt
 from ..optim.reprojection import RigParams
 from ..ops import scatter_max, set_rows
+from ..parallel import dist_ba
 from ..slam_map import map_state as ms
 from ..solvers import two_view
 from . import multi_tracking as mt
@@ -76,8 +77,6 @@ from .streaming import (INIT, LOST, NEED_REF, OK, TrajRing, _masked_median,
 
 __all__ = ["VIStreamConfig", "VIStreamCarry", "StreamingVITracker",
            "init_carry"]
-
-_LATER = trk._LATER
 
 
 class VIStreamCarry(NamedTuple):
@@ -928,17 +927,27 @@ class StreamingVITracker:
         what the amortized in-stream GBA does at keyframe cadence), then
         the live pose and velocity re-expressed through the reference
         keyframe in the refined world. Call at event cadence, not per
-        frame. `mesh` (the sharded solve) is not ported yet.
+        frame. `mesh`: None, one process's solve; else the
+        landmark-sharded solve over a process group
+        (`tracking.distributed_global_ba_step`), every rank of it calling
+        with the same state: a `parallel.dist_ba.Mesh`, an int n (ranks
+        0..n-1 of the world; 1 with no world initialized is a one-rank
+        group) or a list of ranks; ranks beyond the world raise
+        ValueError.
         Returns chi2 as a 0-d tensor."""
-        if mesh is not None:
-            raise NotImplementedError(_LATER.format(
-                "Queue 1 item 10: run_global_ba(mesh=), parallel/ on "
-                "torch.distributed"))
         c = self.carry
-        m2, chi = trk.global_inertial_ba_step(
-            self.map, c.chain.map(lambda x: x[1:]), c.chain_valid[1:],
-            self.rig.kind, self.rig, stages=stages, cg_iters=cg_iters,
-            obs_cap=self.cfg.obs_cap)
+        pre_b = c.chain.map(lambda x: x[1:])
+        if mesh is not None:
+            m2, chi = trk.distributed_global_ba_step(
+                self.map, self.rig.kind, self.rig,
+                dist_ba.resolve_mesh(mesh, self.map.kf_t.device),
+                pre_b=pre_b, edge_valid=c.chain_valid[1:], stages=stages,
+                cg_iters=cg_iters, obs_cap=self.cfg.obs_cap)
+        else:
+            m2, chi = trk.global_inertial_ba_step(
+                self.map, pre_b, c.chain_valid[1:], self.rig.kind,
+                self.rig, stages=stages, cg_iters=cg_iters,
+                obs_cap=self.cfg.obs_cap)
         self._adopt(m2)
         return chi
 

@@ -27,6 +27,7 @@ import torch
 from .. import resolve_device
 from ..frontend import rectify as rect_mod
 from ..io import serialization, settings as settings_mod, trajectory
+from ..parallel import dist_ba
 from ..slam_map import atlas as atlas_mod
 from ..utils.timing import StageTimer
 from . import loop_closing, multi_tracking, tracking
@@ -300,18 +301,26 @@ class System:
         becomes an explicit call; matrix-free Schur+PCG on the device).
         Runs FullInertialBA (inertial edges from the tracker's
         preintegration chain, reference src/Optimizer.cc:368) once the
-        IMU is initialized; visual-only GBA otherwise. `mesh` (the
-        sharded solve) is not ported yet. Returns the final chi2."""
-        if mesh is not None:
-            raise NotImplementedError(tracking._LATER.format(
-                "Queue 1 item 10: run_global_ba(mesh=), parallel/ on "
-                "torch.distributed"))
+        IMU is initialized; visual-only GBA otherwise. `mesh`: None, one
+        process's solve; else the landmark-sharded solve over a process
+        group (`tracking.distributed_global_ba_step`), every rank of it
+        calling: a `parallel.dist_ba.Mesh`, an int n (ranks 0..n-1 of the
+        world; 1 with no world initialized is a one-rank group) or a list
+        of ranks; ranks beyond the world raise ValueError. Returns the
+        final chi2."""
         with self.timer.stage("gba"):
             tr = self.tracker
             inertial = (getattr(tr, "imu_initialized", False)
                         and hasattr(tr, "_kf_pre_batch"))
+            pre_b = cvalid = None
             if inertial:
                 pre_b, cvalid = tr._kf_pre_batch(tr.cfg.max_kf)
+            if mesh is not None:
+                m, chi = tracking.distributed_global_ba_step(
+                    tr.map, tr.rig.kind, tr.rig,
+                    dist_ba.resolve_mesh(mesh, tr.map.kf_t.device),
+                    pre_b=pre_b, edge_valid=cvalid)
+            elif inertial:
                 m, chi = tracking.global_inertial_ba_step(
                     tr.map, pre_b, cvalid, tr.rig.kind, tr.rig)
             else:

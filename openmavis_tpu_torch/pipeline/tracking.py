@@ -25,6 +25,7 @@ traced scalars.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -37,14 +38,11 @@ from ..geometry import cameras, triangulation
 from ..imu import preintegration as pre_mod
 from ..optim import ba, global_ba, pose_opt
 from ..optim.reprojection import RigParams
+from ..parallel import dist_ba
 from ..ops import compact_indices, last_occurrence, scatter_max, set_rows
 from ..slam_map import map_state as ms
 from ..solvers import pnp as pnp_mod
 from ..solvers import two_view
-
-# what a part of the reference package that the port leaves for a later
-# slice raises with
-_LATER = "not ported yet; queued in ROADMAP.md ({})"
 
 
 def project_landmarks(m: ms.MapState, R, t, rig_kind: int, rig_params,
@@ -603,8 +601,7 @@ def global_ba_step(m: ms.MapState, rig_kind: int, rig: RigParams,
     Optimizer::GlobalBundleAdjustemnt, src/LoopClosing.cc:2351); the first
     two keyframes fix the gauge. Returns (m, chi2)."""
     obs, observed, kf_local, feat = full_map_observations(m, obs_cap)
-    K = m.kf_R.shape[0]
-    fixed = (torch.arange(K, device=m.kf_valid.device) < 2) | ~m.kf_valid
+    _, fixed = _whole_map_chain(m, None, None)
     state, inlier, chi = global_ba.global_bundle_adjust(
         _whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
         stages=stages, cg_iters=cg_iters)
@@ -625,8 +622,24 @@ def global_inertial_ba_step(m: ms.MapState, pre_b, edge_valid,
     pre_b: batched Preintegrated for intervals (k -> k+1), k in [0, K-1);
     edge_valid: [K-1] bool. Returns (m, chi2)."""
     obs, observed, kf_local, feat = full_map_observations(m, obs_cap)
+    edges, fixed = _whole_map_chain(m, pre_b, edge_valid)
+    state, inlier, chi = global_ba.global_bundle_adjust(
+        _whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
+        edges=edges, stages=stages, cg_iters=cg_iters)
+    m = _writeback_gba(m, state, inlier, chi, observed, kf_local, feat,
+                       obs.valid, with_imu=True)
+    return m, chi
+
+
+def _whole_map_chain(m: ms.MapState, pre_b, edge_valid):
+    """(edges, fixed) of a whole-map solve: with a chain (`pre_b` not
+    None) the inertial edges between live keyframes, each interval
+    relinearized at its keyframe's current bias, and the first keyframe
+    fixed; without, no edges and the first two fixed."""
     K = m.kf_R.shape[0]
     idx = torch.arange(K, device=m.kf_valid.device)
+    if pre_b is None:
+        return None, (idx < 2) | ~m.kf_valid
     kf_in = m.kf_valid & (idx < m.n_kf)
     edge_ok = edge_valid & kf_in[1:] & kf_in[:-1]
     # relinearize each interval at its own keyframe's current bias
@@ -634,12 +647,35 @@ def global_inertial_ba_step(m: ms.MapState, pre_b, edge_valid,
     bias_k = torch.cat([m.kf_bg, m.kf_ba], dim=-1)[:-1]
     edges = ba.InertialEdges(pre=pre_mod.rebias(pre_b, bias_k),
                              valid=edge_ok)
-    fixed = (idx < 1) | ~m.kf_valid
-    state, inlier, chi = global_ba.global_bundle_adjust(
-        _whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
+    return edges, (idx < 1) | ~m.kf_valid
+
+
+def distributed_global_ba_step(m: ms.MapState, rig_kind: int,
+                               rig: RigParams, mesh: dist_ba.Mesh,
+                               pre_b=None, edge_valid=None, stages=(4, 6),
+                               cg_iters: int = 16, obs_cap: int = 131072):
+    """Whole-map GBA (inertial when `pre_b` is given) SHARDED over the
+    ranks of `mesh`: the landmarks, their Hessian blocks and the
+    observation table are partitioned
+    (`dist_ba.distributed_global_ba_lsharded`), one [K, D] all_reduce
+    per CG matvec. Every rank of the mesh calls it; the solve starts from
+    mesh rank 0's map and chain (broadcast first: ranks that tracked the
+    same frames on a card may still part by a binding), so every rank
+    returns the same map. The bucketing of the observations reads the
+    table to the host once: call at event cadence (post-loop, post-merge,
+    shutdown), as the reference's GBA thread runs
+    (src/LoopClosing.cc:2351). Returns (m, chi2)."""
+    bc = partial(dist_ba.broadcast, mesh)
+    m = ms.MapState(*map(bc, m))
+    if pre_b is not None:
+        pre_b, edge_valid = pre_b.map(bc), bc(edge_valid)
+    obs, observed, kf_local, feat = full_map_observations(m, obs_cap)
+    edges, fixed = _whole_map_chain(m, pre_b, edge_valid)
+    state, inlier, chi = dist_ba.distributed_global_ba_lsharded(
+        mesh, _whole_map_state(m), obs, rig, fixed, point_fixed=~observed,
         edges=edges, stages=stages, cg_iters=cg_iters)
     m = _writeback_gba(m, state, inlier, chi, observed, kf_local, feat,
-                       obs.valid, with_imu=True)
+                       obs.valid, with_imu=pre_b is not None)
     return m, chi
 
 

@@ -52,6 +52,12 @@ def _assign(desc, centers_per_node, node_of_desc):
     """desc [N,256]; centers_per_node [n_nodes, k, 256]; node_of_desc [N].
     Returns the child index [N] in 0..k-1 by Hamming argmin (ties to the
     lower child)."""
+    if desc.device.type == "cpu":
+        return _assign_cpu(desc, centers_per_node, node_of_desc)
+    return _assign_dense(desc, centers_per_node, node_of_desc)
+
+
+def _assign_dense(desc, centers_per_node, node_of_desc):
     out = []
     for lo in range(0, desc.shape[0], _CHUNK):
         d_c = desc[lo:lo + _CHUNK].to(torch.int16)
@@ -62,6 +68,27 @@ def _assign(desc, centers_per_node, node_of_desc):
     if not out:
         return torch.zeros(0, dtype=torch.int64, device=desc.device)
     return torch.cat(out)
+
+
+def _assign_cpu(desc, centers_per_node, node_of_desc):
+    """The CPU route of `_assign`, equal to it exactly: the descriptors of
+    each node against its k centers as one float product (|a| + |b| -
+    2 a.b, exact integers below 2^24), the same first-minimum argmin."""
+    out = torch.zeros(desc.shape[0], dtype=torch.int64)
+    a = desc.to(torch.float32)
+    order = torch.argsort(node_of_desc, stable=True)
+    nodes, counts = torch.unique_consecutive(node_of_desc[order],
+                                             return_counts=True)
+    lo = 0
+    for c, n in zip(nodes.tolist(), counts.tolist()):
+        rows = order[lo:lo + n]
+        lo += n
+        cen = centers_per_node[c].to(torch.float32)          # [k, 256]
+        ar = a[rows]
+        d = (ar.sum(-1, keepdim=True) + cen.sum(-1)[None]
+             - 2.0 * (ar @ cen.T))
+        out[rows] = torch.argmin(d, dim=-1)
+    return out
 
 
 def train(desc, k: int = 10, levels: int = 3, iters: int = 6,

@@ -88,6 +88,61 @@ def test_blur_and_fast_score(frame):
     np.testing.assert_array_equal(s_t, s_j)
 
 
+@pytest.mark.parametrize("th", [7.0, 15.0, 20.0])
+def test_fast_cpu_route_equals_the_dense_form(frame, th):
+    """On the CPU `_score_from_diff` packs the arc words plane by plane
+    and sums the excess over the corners only; its score equals the
+    dense form's (the route CUDA tensors take) exactly: on the rig's
+    frame (both cameras as one batch), on a resampled pyramid level and
+    on float noise whose pixel count leaves a tail off torch's vector
+    width."""
+    rng = np.random.default_rng(5)
+    level = tpy.build_pyramid(torch.as_tensor(frame[0]), 3, 1.2)[2]
+    for img in (torch.as_tensor(frame), level[None],
+                torch.as_tensor(rng.random((2, 97, 131)).astype(np.float32)
+                                * 255)):
+        diff = tfast._ring(img) - img[None]
+        inside = tfast._inside_mask(*img.shape[-2:], 16, img.device)
+        got = tfast._score_from_diff(diff, th, inside)
+        ref = tfast._score_from_diff_dense(diff, th, diff > th, diff < -th,
+                                           inside)
+        assert int((ref > 0).sum()) > 0
+        assert torch.equal(got, ref)
+
+
+def _sample_dense(patches_blur, sx, sy):
+    """Bilinear samples [K, 512] with tent weights over every lane and
+    row, one batched product (the form `orb._sample` replaces)."""
+    P = patches_blur.shape[1]
+    lanes = torch.arange(torb._PW, dtype=sx.dtype)
+    rows_ = torch.arange(P, dtype=sy.dtype)
+    a = torch.bmm(torb._tent(sx[..., None], lanes),
+                  patches_blur.transpose(1, 2))              # [K, 512, P]
+    return torch.sum(a * torb._tent(sy[..., None], rows_), dim=-1)
+
+
+def test_patch_sampling_cpu_route_equals_the_dense_form():
+    """`patch_values`' bilinear samples (two live lanes and rows) equal
+    the dense form's exactly, with flat patches (ties), sample points on
+    integer lanes and rows and at both clamps."""
+    rng = np.random.default_rng(6)
+    K, P = 300, 2 * torb.PATCH_RADIUS + 1
+    pb = torch.as_tensor(rng.random((K, P, torb._PW)).astype(np.float32)
+                         * 255)
+    pb[:100] = torch.round(pb[:100] / 64) * 64
+    sx = torch.as_tensor(rng.uniform(0, torb._PW - 1.001, (K, 512)).astype(
+        np.float32))
+    sy = torch.as_tensor(rng.uniform(0, P - 1.001, (K, 512)).astype(
+        np.float32))
+    for s, hi in ((sx, torb._PW - 1.001), (sy, P - 1.001)):
+        s[:, :20] = torch.floor(s[:, :20])
+        s[:, 20:30] = 0.0
+        s[:, 30:40] = hi
+    got = torb._sample(pb, sx, sy)
+    assert torch.equal(got, _sample_dense(pb, sx, sy))
+    assert got.shape == (K, 512)
+
+
 def test_keypoints_exact(both):
     fj, ft, _ = both
     np.testing.assert_array_equal(ft.xy.numpy(), np.asarray(fj.xy))

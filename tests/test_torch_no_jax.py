@@ -2,7 +2,7 @@
 machine it runs on has no jax installed. Nor does any of its modules import
 PyYAML or Pillow when it is imported: that machine may lack them too. The
 example mains are modules of the port (`openmavis_tpu_torch.examples`)
-and are held to the same."""
+and are held to the same, and so are the four modules of `parallel/`."""
 
 import pathlib
 import subprocess
@@ -59,6 +59,25 @@ def test_port_imports_without_jax():
         "    assert hasattr(loop_closing, n), n\n"
         "from openmavis_tpu_torch.pipeline import system\n"
         "assert len(system.Sensor) == 8 and hasattr(system, 'System')\n"
+        "for n in ('parallel', 'parallel.dist_ba', 'parallel.dist_place',\n"
+        "          'parallel.multihost'):\n"
+        "    assert 'openmavis_tpu_torch.' + n in sys.modules, n\n"
+        "from openmavis_tpu_torch.parallel import dist_ba, dist_place\n"
+        "from openmavis_tpu_torch.parallel import multihost\n"
+        "for mod, n in ((dist_ba, 'make_mesh'), (dist_ba, 'resolve_mesh'),\n"
+        "               (dist_ba, 'shard_observations_by_landmark'),\n"
+        "               (dist_ba, 'distributed_bundle_adjust'),\n"
+        "               (dist_ba, 'distributed_global_ba'),\n"
+        "               (dist_ba, 'distributed_global_ba_lsharded'),\n"
+        "               (dist_place, 'sharded_place_scores'),\n"
+        "               (multihost, 'initialize'),\n"
+        "               (multihost, 'global_mesh'),\n"
+        "               (multihost, 'host_local_to_global'),\n"
+        "               (multihost, 'process_count'),\n"
+        "               (multihost, 'process_index')):\n"
+        "    assert hasattr(mod, n), n\n"
+        "from openmavis_tpu_torch.pipeline import tracking\n"
+        "assert hasattr(tracking, 'distributed_global_ba_step')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'openmavis_tpu' or m.startswith('openmavis_tpu.')\n"

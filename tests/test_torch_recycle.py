@@ -514,7 +514,8 @@ def test_run_global_ba(runs):
     IMU-initialized) state: the whole-map FullInertialBA, then the live
     pose re-expressed through its reference keyframe. Map integers exact,
     keyframe poses and the live pose 1e-3, chi2 1e-3 relative; the live
-    pose keeps its pose relative to that keyframe. `mesh=` still raises."""
+    pose keeps its pose relative to that keyframe. `mesh=2` in a one-rank
+    world raises ValueError (tests/test_torch_parallel.py holds mesh=1)."""
     jt = runs["jax"]
     m_np, c_np = _state(jt)
     assert int(c_np["viba_stage"]) >= 1
@@ -552,5 +553,5 @@ def test_run_global_ba(runs):
     np.testing.assert_allclose(after[0], before[0], atol=1e-5)
     np.testing.assert_allclose(after[1], before[1], atol=1e-5)
     assert tt.snapshot()["n_kf"] == m_j["n_kf"]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="world of size 1"):
         tt.run_global_ba(mesh=2)

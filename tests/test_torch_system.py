@@ -12,8 +12,8 @@ held, without compiling a tracker step:
   samples, in order;
 * one port-only MONOCULAR run at tests/test_system.py's configuration
   with that test's assertions, the viewer included;
-* `reset` on the same device, `run_global_ba(mesh=)` refused, and the
-  current CUDA device as the default.
+* `reset` on the same device, `run_global_ba(mesh=)` beyond the world
+  refused, and the current CUDA device as the default.
 
 Tolerances: configurations, rigs, images and IMU samples exact (the same
 numpy on both sides); the remapped pair 1e-4 on 0-255 images; the IMU
@@ -333,10 +333,16 @@ def test_reset_keeps_the_device(sensor):
 
 
 def test_run_global_ba_mesh_not_ported():
+    """`run_global_ba(mesh=)` asks for more ranks than a world that was
+    never initialized has: ValueError, and no mesh-less solve in its
+    place (tests/test_torch_parallel.py holds the sharded solve)."""
     slam = tsystem.System(_mono_settings(), S.MONOCULAR, device="cpu",
                           tracker_overrides=dict(OVERRIDES))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        slam.run_global_ba(mesh=2)
+    m = slam.tracker.map
+    for mesh in (2, [0, 1], [1]):
+        with pytest.raises(ValueError, match="world of size 1"):
+            slam.run_global_ba(mesh=mesh)
+    assert slam.tracker.map is m
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -96,6 +96,24 @@ def test_train_exact(vocabs, bank):
         tv, torch.as_tensor(desc))))) > 10 ** (len(tv.centers) - 1)
 
 
+def test_assign_cpu_route_equals_the_dense_form():
+    """`_assign` on the CPU (each node's descriptors against its k centers
+    as one float product) equals the dense Hamming form exactly, ties to
+    the lower child included, and takes an empty bank."""
+    rng = np.random.default_rng(7)
+    desc = torch.as_tensor((rng.random((3000, 256)) < 0.5).astype(np.int8))
+    cen = torch.as_tensor((rng.random((12, 10, 256)) < 0.5).astype(np.int8))
+    cen[:, 6] = cen[:, 2]                        # tied children
+    node = torch.as_tensor(rng.integers(0, 12, 3000))
+    node[node == 5] = 4                          # a node with no member
+    desc[:40] = cen[node[:40], 6]                # exact ties at distance 0
+    got = tvoc._assign(desc, cen, node)
+    assert torch.equal(got, tvoc._assign_dense(desc, cen, node))
+    assert not (got == 6).any() and (got == 2).sum() >= 40
+    empty = torch.zeros((0, 256), dtype=torch.int8)
+    assert tvoc._assign(empty, cen, node[:0]).shape == (0,)
+
+
 def test_transform_and_l1_score(vocabs, bank):
     """Dense tf-idf vectors and their L1 scores: 1e-6 relative."""
     jv, tv = vocabs
