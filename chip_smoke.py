@@ -59,7 +59,11 @@ Phases (any failure raises; the exit code is then nonzero):
      `relocalize_step` on every LOST frame and recovers. Gates: at least
      one recycle, after which the slab has room, its keyframes are packed
      and finite and no earlier frame's world pose has moved by 1e-3 m;
-     frames tracked, IMU initialization, ATE, scale, at least one loop
+     across each recycle every slot field of the loop closer's carry
+     (`last_slot`, `cand`, `pend_slot`, `merge_last`) names the same
+     keyframe (by its timestamp) or -1, and the loop step takes the
+     keyframe of that frame as new (printed as keyframe times); frames
+     tracked, IMU initialization, ATE, scale, at least one loop
      closed; at least 6 LOST frames and recovery within 10 frames of the
      images' return; three direct 512 x 2,048 and three `mask.T`
      2,048 x 512 launches of `hamming_best2` per LOST frame; and a kidnap
@@ -1680,6 +1684,57 @@ class RecycleProbe:
         self._step.recycle = self._fn
 
 
+LC_SLOT_FIELDS = ("last_slot", "cand", "pend_slot", "merge_last")
+
+
+class LCCarryProbe:
+    """Records the loop closer's carry across each recycle, as keyframe
+    timestamps: its slot fields before the recycle (read on the old slab)
+    and after `streaming_lc.remap_slots` (read on the compacted slab), and
+    whether the loop step of that push took the new keyframe as new (its
+    slot differs from the carry's `last_slot`, the closer's own test)."""
+
+    def __init__(self, tr):
+        from openmavis_tpu_torch.pipeline import streaming_lc
+        self.calls, self._mod = [], streaming_lc
+        self._remap, self._tr = streaming_lc.remap_slots, tr
+        self._step, self._recycle = tr._step, tr._step.recycle
+        self._lc_step = tr._lc_step.step
+        self._times = None
+        streaming_lc.remap_slots = self._on_remap
+        tr._step.recycle = self._on_recycle
+        tr._lc_step.step = self._on_lc_step
+
+    def _on_recycle(self, m, c):
+        m2, c2 = self._recycle(m, c)
+        self._times = (m.kf_time.tolist(), m2.kf_time.tolist())
+        return m2, c2
+
+    def _on_remap(self, lcc, slot_map):
+        out = self._remap(lcc, slot_map)
+        old_t, new_t = self._times
+        rec = {}
+        for k in LC_SLOT_FIELDS:
+            a, b = int(getattr(lcc, k)), int(getattr(out, k))
+            rec[k] = dict(slot_before=a, slot_after=b,
+                          time_before=old_t[a] if a >= 0 else None,
+                          time_after=new_t[b] if b >= 0 else None)
+        self.calls.append(dict(fields=rec))
+        return out
+
+    def _on_lc_step(self, m, c, lcc, rig, sample_idx=None):
+        if self._step.slot_map is not None:
+            slot, last = int(m.n_kf) - 1, int(lcc.last_slot)
+            self.calls[-1].update(new_slot=slot,
+                                  processed=slot != last and slot > 0)
+        return self._lc_step(m, c, lcc, rig, sample_idx)
+
+    def restore(self):
+        self._mod.remap_slots = self._remap
+        self._step.recycle = self._recycle
+        self._tr._lc_step.step = self._lc_step
+
+
 KIDNAP_ATTEMPTS = 3
 
 
@@ -1761,14 +1816,17 @@ def phase_recycle_blackout(torch, dev, mc, card: str, stages: bool = False):
           % (n, time.perf_counter() - t0))
     tr, cfg = make_tracker(torch, dev, n, lc=True, max_kf=MAX_KF_2)
     probe = RecycleProbe(torch, tr)
+    carry_probe = LCCarryProbe(tr)
     try:
         run = drive(torch, mc, tr, frames, batches, stages)
     finally:
+        carry_probe.restore()
         probe.restore()
     counts = run["counts"]
     out = content(torch, tr, run, n, t_wb, True, stages, card)
     out["path"] = "recycle_blackout"
     out["recycles"] = probe.calls
+    out["lc_carry_across_recycles"] = carry_probe.calls
 
     def frames_with(event):
         return [f["frame"] for f in run["step_frames"]
@@ -1807,7 +1865,23 @@ def phase_recycle_blackout(torch, dev, mc, card: str, stages: bool = False):
     print("relocalize_step on the final map: hamming_matrix %d x %d, peak "
           "memory of the call %d B, %.1f ms"
           % (*k["hamming_matrix_shape"], k["peak_bytes"], k["ms"]))
+    carried = carry_probe.calls
+    for f, rec in zip(frames_with("recycle"), carried):
+        print("LCCarry across the recycle at frame %d (keyframe times, s): "
+              % f + ", ".join(
+                  "%s %s -> %s" % (k, v["time_before"], v["time_after"])
+                  for k, v in rec["fields"].items())
+              + "; the new keyframe (slot %s) processed by the closer: %s"
+              % (rec.get("new_slot"), rec.get("processed")))
     checks = common_checks(out, n - len(BLACKOUT) - 10) + [
+        (len(carried) == len(probe.calls) and all(
+            v["slot_after"] == -1 or v["time_after"] == v["time_before"]
+            for rec in carried for v in rec["fields"].values()),
+         "across each recycle, every slot field of LCCarry names the same "
+         "keyframe or -1"),
+        (all(rec.get("processed") for rec in carried),
+         "the first keyframe after each recycle processed by the loop "
+         "closer"),
         (len(probe.calls) >= 1, "at least one recycle"),
         (all(r["n_kf_after"] < cfg.max_kf for r in probe.calls),
          "n_kf < %d after a recycle" % cfg.max_kf),

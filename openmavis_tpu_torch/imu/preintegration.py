@@ -163,6 +163,21 @@ def integrate(w: torch.Tensor, a: torch.Tensor, dts: torch.Tensor,
     return state
 
 
+def integrate_batch(w: torch.Tensor, a: torch.Tensor, dts: torch.Tensor,
+                    bias: torch.Tensor, noise: ImuNoise) -> Preintegrated:
+    """`integrate` over a batch of intervals: w, a [B, S, 3], dts [B, S],
+    bias [B, 6]; one pass over the S samples, each update applied to the
+    whole batch on the leading axis (the reference vmaps `integrate`)."""
+    B = w.shape[0]
+    state = init_preintegrated(bias[0].to(w.dtype)).map(
+        lambda x: x.expand((B,) + x.shape).clone())
+    state = state._replace(b=bias.to(w.dtype))
+    step = torch.vmap(_step, in_dims=(0, 0, 0, 0, None))
+    for i in range(w.shape[1]):
+        state = step(state, w[:, i], a[:, i], dts[:, i], noise)
+    return state
+
+
 # ---------------------------------------------------------------------------
 # Exact composition of consecutive preintegrations (closed form of
 # IMU::Preintegrated::MergePrevious, src/ImuTypes.cc:241-263)

@@ -49,7 +49,7 @@ from . import loop_closing as lc_mod
 from . import tracking as trk
 
 __all__ = ["LCCarry", "LCStep", "MergeStep", "init_lc_carry",
-           "make_lc_step", "make_merge_step"]
+           "make_lc_step", "make_merge_step", "remap_slots"]
 
 
 class LCCarry(NamedTuple):
@@ -90,6 +90,32 @@ def init_lc_carry(device=None) -> LCCarry:
         merged=torch.zeros((), dtype=torch.bool, device=dev),
         merge_last=i32(-1), n_merges=i32(0), kf_off=i32(0),
         dbg=torch.zeros(6, device=dev))
+
+
+def remap_slots(lcc: LCCarry, slot_map) -> LCCarry:
+    """The carry after the keyframe slab was compacted: `slot_map` [K]
+    gives each old slot's new slot, or -1 where its keyframe went
+    (`VIStep.recycle`). `last_slot`, `merge_last`, `cand` and `pend_slot`
+    follow their keyframes; a pending hypothesis, a Sim3 between its two
+    keyframes, is dropped (`cand` = `pend_slot` = -1) when either went.
+
+    The reference package keeps the old indices (its
+    `streaming_vi.py::recycle` touches no LCCarry): when the compaction
+    frees one slot, the next keyframe lands on the old `last_slot` and the
+    closer never looks at it, and a hypothesis pending at the last slot
+    never becomes pending again (`slot > pend_slot` cannot hold)."""
+    K = slot_map.shape[0]
+
+    def remap(x):
+        new = slot_map[torch.clamp(x, 0, K - 1).to(torch.int64)]
+        return torch.where(x >= 0, new, -1).to(x.dtype)
+
+    cand, pend = remap(lcc.cand), remap(lcc.pend_slot)
+    gone = (cand < 0) | (pend < 0)
+    return lcc._replace(
+        last_slot=remap(lcc.last_slot), merge_last=remap(lcc.merge_last),
+        cand=torch.where(gone, -1, cand).to(cand.dtype),
+        pend_slot=torch.where(gone, -1, pend).to(pend.dtype))
 
 
 def _retrieval_scores(m: ms.MapState, slot) -> torch.Tensor:

@@ -244,6 +244,9 @@ class VIStep:
         # "lost" (the frame ended without a track), "recycle" (the slab
         # was full) and "decimate" (culling had freed nothing)
         self.events: tuple = ()
+        # the last step's recycle: each old keyframe slot's new slot, -1
+        # where its keyframe went (None: no recycle)
+        self.slot_map = None
 
     # ---------------- helpers ----------------
     def extract_bank(self, images):
@@ -308,7 +311,11 @@ class VIStep:
         pose stays where it was. (The reference package's device recycle
         remaps `traj.ref` alone and leaves such an entry's relative pose
         as it was, which moves the frame by the offset between the two
-        keyframes.)"""
+        keyframes.)
+
+        Sets `slot_map` [K]: each old slot's new slot, -1 where its
+        keyframe went (`streaming_lc.remap_slots` moves the loop closer's
+        carry with it)."""
         K = self.Kmax
         self.events += ("recycle",)
         if int(torch.sum(m.kf_valid)) >= K:
@@ -316,6 +323,7 @@ class VIStep:
             self.events += ("decimate",)
         old = m
         m, _, new_of_old = ms.compact_keyframes(m)
+        self.slot_map = torch.where(old.kf_valid, new_of_old, -1)
         chain2, cvalid2 = self.weld_chain(c.chain, c.chain_valid,
                                           old.kf_valid, new_of_old)
         m, _ = ms.compact_landmarks(m)
@@ -721,7 +729,7 @@ class VIStep:
         """depth: [C, H, W] float32 on the device (`use_depth`);
         sample_idx: optional two-view samples (idx8 [256, 8],
         idx4 [256, 4]) for a frame that attempts the mono init."""
-        self.events = ()
+        self.events, self.slot_map = (), None
         images = images.to(torch.float32)
         bank = self.extract_bank(images)
         has_pre = False
@@ -871,6 +879,11 @@ class StreamingVITracker:
             sample_idx)
         self.step_events = self._step.events
         if self._lc_step is not None:
+            if self._step.slot_map is not None:
+                # the closer's slots follow their keyframes through the
+                # recycle (the reference keeps the old indices)
+                self.lc_carry = streaming_lc.remap_slots(
+                    self.lc_carry, self._step.slot_map)
             merge_events = ()
             if self._merge_step is not None:
                 self.map, self.carry, self.lc_carry = self._merge_step(
