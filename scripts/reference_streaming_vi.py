@@ -11,7 +11,18 @@ the CPU at the configurations of `chip_smoke.py`, and the port's beside it:
   IMU, loop closing on; 50 frames by default;
 * `long`: the long run of `chip_smoke.py --long` (`scene.make_sequence(800,
   2.2)`, a 256-keyframe / 32,768-landmark slab, `track_map_cap=8192`),
-  200 frames of it by default.
+  200 frames of it by default;
+* `host_lc`: path 10, the flagship example's combination: path 2's orbit
+  (`N_FRAMES_HOST_LC` = 270 frames at the flagship's angular step), the
+  bench's slab, device loop closing off, and the host-policy
+  `LoopCloser(None, 64, rig=rig, inertial=True, img_w=640, img_h=480,
+  seed=SEED)` with `maybe_close_loop()` after every push. The line also
+  carries `lc_trace`, one row per `on_keyframe` call (`HostTrace`: frame,
+  slot, pending hypothesis in and out, the sparse database's top 3, the
+  candidates, each solve's pairs, RANSAC success and inliers, each group
+  score, closed). 8-16 minutes for the reference and 24-29 for the port
+  at TORCH_THREADS=1, up to eight such runs sharing an 8-core host (at
+  two or three torch threads each, several port runs ran 20x slower).
 
 Prints one JSON line: frames tracked, the init frame (the first tracked
 frame), the keyframe frames (those whose push inserted a keyframe), the
@@ -23,6 +34,14 @@ keyframe and landmark counts, and the ATE with and without Horn scale.
 Options:
   --frames N     frames pushed (the mode's own count by default);
   --port         run the port (`openmavis_tpu_torch`) on the CPU instead;
+  --seed SEED    the host loop closer's seed (host_lc; 100, the example's,
+                 by default);
+  --trace-full   keep in `lc_trace` each call's dense place scores and
+                 the slot's covisibility row (host_lc);
+  --hold-confirm FRAME  (host_lc) both packages free up to that frame,
+                 then each package's closer, with seeds 100-107, on each
+                 package's map of that frame (`hold_confirm`; about ten
+                 minutes at frame 174);
   --attempts     also record each loop attempt: frame, slot, candidate,
                  the descriptor and projection pairs, RANSAC success,
                  refined inliers and the group score (the reference's
@@ -37,7 +56,16 @@ Options:
                  before, every frame, with the reference's raw features
                  (the port undistorts them) and its two-view samples and
                  loop-closing RANSAC samples, and print for each frame the
-                 fields that part: integers exactly, poses beyond 1e-3 m;
+                 fields that part: integers exactly, poses beyond 1e-3 m.
+                 With host_lc (`step_port_host_lc`, about 27 minutes): the
+                 push from the reference's state (map, carry,
+                 `_last_lc_slot`, `_t_prev`), then `maybe_close_loop` from
+                 the reference's pushed state and its closer's state
+                 (vocabulary, database, pending hypothesis, counters, key)
+                 with the reference's Sim3 samples through
+                 `LoopCloser.samples`; per frame the push's parts and, on
+                 a closer call, the decisions that part (`trace_parts`),
+                 the closer state's and the map's;
   --port-draws   run the port free, with the reference's two-view samples
                  on its init attempts (drawn from the reference's keys);
   --hold-attempt FRAME  with the --dump DIR of a reference run with
@@ -69,7 +97,7 @@ import chip_smoke as cs  # noqa: E402
 from openmavis_tpu_torch import scene  # noqa: E402
 from openmavis_tpu_torch.io import evaluation  # noqa: E402
 
-MODES = ("flagship", "mono_inertial_euroc", "long")
+MODES = ("flagship", "mono_inertial_euroc", "long", "host_lc")
 LC_KW = dict(score_min=30, temporal=2)
 N_HYP_TWO_VIEW = 256
 N_HYP_SIM3 = 128
@@ -79,8 +107,9 @@ INTS = ("mode", "n_kf", "n_mp", "kf_valid", "kf_obs", "mp_valid",
 FLOATS = ("kf_t", "p", "mp_pos")
 
 
-def setup(mode: str, n: int) -> dict:
-    """The scene and the configuration of `mode`, `n` frames pushed."""
+def setup(mode: str, n: int, lc_seed: int = 100) -> dict:
+    """The scene and the configuration of `mode`, `n` frames pushed
+    (`lc_seed`: the host loop closer's seed, mode host_lc)."""
     if mode == "mono_inertial_euroc":
         w, h, pin, dist, _ = cs.single_camera_setup(mode)
         rig_np, frames, _, t_wb, batches, _ = \
@@ -92,6 +121,16 @@ def setup(mode: str, n: int) -> dict:
                     orb=dict(n_features=cs.SINGLE_FEATURES, n_levels=8),
                     sigmas=scene.EUROC_NOISE_SIGMAS,
                     dist=np.asarray(dist, np.float32)[None])
+    if mode == "host_lc":
+        total = cs.N_FRAMES_HOST_LC
+        rig_np, frames, _, t_wb, batches = scene.make_sequence(
+            total, orbit_frac=1.25 * (total - 1) / (cs.N_FRAMES - 1),
+            kind_name="kb8")
+        return dict(rig_np=rig_np, frames=frames[:n], t_wb=t_wb[:n],
+                    batches=batches[:n],
+                    cfg_kw=scene.bench_config_kwargs(total),
+                    orb=dict(n_features=cs.N_FEATURES, n_levels=8),
+                    sigmas=scene.NOISE_SIGMAS, dist=None, lc_seed=lc_seed)
     if mode == "long":
         total = cs.LONG["n_frames"]
         rig_np, frames, _, t_wb, batches = scene.make_sequence(
@@ -118,13 +157,19 @@ def reference_tracker(s: dict):
     from openmavis_tpu.frontend import extractor
     from openmavis_tpu.imu import preintegration as pre_mod
     from openmavis_tpu.optim.reprojection import RigParams
-    from openmavis_tpu.pipeline import streaming_vi
+    from openmavis_tpu.pipeline import loop_closing, streaming_vi
 
     r = s["rig_np"]
     rig = RigParams(r["kind"], *(jnp.asarray(r[k]) for k in
                                  ("params", "R_cb", "t_cb")))
     cfg = streaming_vi.VIStreamConfig(
         orb=extractor.OrbConfig(**s["orb"]), **s["cfg_kw"])
+    if "lc_seed" in s:
+        return streaming_vi.StreamingVITracker(
+            rig, cfg, pre_mod.ImuNoise.from_sigmas(*s["sigmas"]), seed=0,
+            loop_closer=loop_closing.LoopCloser(
+                None, cfg.max_kf, seed=s["lc_seed"], rig=rig,
+                inertial=True, img_w=cfg.img_w, img_h=cfg.img_h))
     return streaming_vi.StreamingVITracker(
         rig, cfg, pre_mod.ImuNoise.from_sigmas(*s["sigmas"]), seed=0,
         dist=s["dist"], device_lc=LC_KW)
@@ -135,15 +180,23 @@ def port_tracker(s: dict):
     from openmavis_tpu_torch import convert
     from openmavis_tpu_torch.frontend import extractor
     from openmavis_tpu_torch.imu import preintegration as pre_mod
-    from openmavis_tpu_torch.pipeline import streaming_vi
+    from openmavis_tpu_torch.pipeline import loop_closing, streaming_vi
 
     torch.set_num_threads(int(os.environ.get("TORCH_THREADS", "8")))
     cfg = streaming_vi.VIStreamConfig(
         orb=extractor.OrbConfig(**s["orb"]), **s["cfg_kw"])
+    rig = convert.rig_from_numpy(s["rig_np"], device="cpu")
+    noise = pre_mod.ImuNoise.from_sigmas(*s["sigmas"], device="cpu")
+    if "lc_seed" in s:
+        return streaming_vi.StreamingVITracker(
+            rig, cfg, noise, seed=0, device="cpu",
+            loop_closer=loop_closing.LoopCloser(
+                None, cfg.max_kf, seed=s["lc_seed"], rig=rig,
+                inertial=True, img_w=cfg.img_w, img_h=cfg.img_h,
+                device="cpu"))
     return streaming_vi.StreamingVITracker(
-        convert.rig_from_numpy(s["rig_np"], device="cpu"), cfg,
-        pre_mod.ImuNoise.from_sigmas(*s["sigmas"], device="cpu"), seed=0,
-        device="cpu", dist=s["dist"], device_lc=LC_KW)
+        rig, cfg, noise, seed=0, device="cpu", dist=s["dist"],
+        device_lc=LC_KW)
 
 
 def _np_tree(x):
@@ -161,14 +214,19 @@ def reference_state(tr) -> tuple:
 
 def record(m, c, lcc, full: bool = False) -> dict:
     """What the summary (and with `full`, the comparisons) read of a map,
-    carry and loop carry of either package."""
+    carry and loop carry of either package (`lcc` a dict of the same
+    fields for a host closer, `closer_fields`)."""
     g = np.asarray
+    if isinstance(lcc, dict):
+        lc = lcc
+    else:
+        lc = dict(n_loops=lcc.n_loops, lc_cand=lcc.cand,
+                  lc_pend_slot=lcc.pend_slot, lc_last_slot=lcc.last_slot,
+                  lc_dbg=lcc.dbg)
     rec = dict(n_kf=g(m.n_kf), n_mp=g(m.n_mp), mode=g(c.mode),
                last_kf_slot=g(c.last_kf_slot), viba_stage=g(c.viba_stage),
                imu_ok=g(c.imu_ok), last_kf_time=g(c.last_kf_time),
-               n_loops=g(lcc.n_loops), lc_cand=g(lcc.cand),
-               lc_pend_slot=g(lcc.pend_slot), lc_last_slot=g(lcc.last_slot),
-               lc_dbg=g(lcc.dbg))
+               **{k: g(v) for k, v in lc.items()})
     if full:
         rec.update({k: g(getattr(m, k)) for k in
                     ("kf_valid", "kf_obs", "mp_valid", "kf_t", "mp_pos")})
@@ -177,7 +235,21 @@ def record(m, c, lcc, full: bool = False) -> dict:
 
 
 def tracker_record(tr, full: bool = False) -> dict:
-    return record(tr.map, tr.carry, tr.lc_carry, full)
+    lcc = tr.lc_carry if tr.lc_carry is not None else closer_fields(tr)
+    return record(tr.map, tr.carry, lcc, full)
+
+
+def closer_fields(tr) -> dict:
+    """A host closer's state under the loop carry's names: its loops, the
+    pending hypothesis's candidate and slot (-1 without one), the last
+    keyframe `maybe_close_loop` handled, and `lc_dbg` the pending
+    hypothesis's count (0 without one)."""
+    lc, p = tr.loop_closer, tr.loop_closer.pending
+    return dict(n_loops=lc.n_loops,
+                lc_cand=-1 if p is None else int(p["cand"]),
+                lc_pend_slot=-1 if p is None else int(p["slot"]),
+                lc_last_slot=tr._last_lc_slot,
+                lc_dbg=[0 if p is None else int(p["count"])])
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +389,429 @@ class Attempts:
 
 
 # ---------------------------------------------------------------------------
+# the host-policy loop closer (mode host_lc)
+# ---------------------------------------------------------------------------
+
+class HostTrace:
+    """What a host `LoopCloser` of either package decided, one row per
+    `on_keyframe` call (`kind` "loop") and per `detect_merge` call
+    ("merge"): the frame (set by the caller), the slot, the pending
+    hypothesis it came with and the one it left ([cand, slot, count] or
+    None), the retrieval (the dense place scores of every slot, or the
+    sparse database's top 3 with their scores and verdicts; for a merge
+    the cross-map scores of each other map), the candidates, each solve
+    (the candidate, matched pairs, the RANSAC's success and inliers, and
+    for a loop the result's inliers or None where a gate refused it),
+    each group score, whether a loop closed, and a merge's hit
+    ([map, kf_off, mp_off] or None). It wraps the closer's methods and
+    the module functions the closer looks up when it runs. `draws`: also
+    keep the sample indices of each of the reference's RANSAC calls,
+    drawn from the key its `_next_key()` handed out (as
+    `ransac_sim3_reproj` draws them), for the port's
+    `LoopCloser.samples`."""
+
+    def __init__(self, lc, ref: bool, draws: bool = False):
+        self.lc = lc
+        self.frame, self.rows = -1, []
+        self.draws = [] if draws else None
+        self._undo = []
+        self._active = False
+        if ref:
+            from openmavis_tpu.pipeline import loop_closing as lcm
+            from openmavis_tpu.pipeline import tracking as trk
+            from openmavis_tpu.slam_map import keyframe_db as kdb
+            from openmavis_tpu.solvers import sim3
+            pairs_fn = "_matched_pairs_body"
+        else:
+            from openmavis_tpu_torch.pipeline import loop_closing as lcm
+            from openmavis_tpu_torch.pipeline import tracking as trk
+            from openmavis_tpu_torch.slam_map import keyframe_db as kdb
+            from openmavis_tpu_torch.solvers import sim3
+            pairs_fn = "_pairs_from_tables"
+        self._entries = (self._on_keyframe, self._detect_merge)
+        self._wrap(lc, "on_keyframe", self._on_keyframe)
+        self._wrap(lc, "detect_merge", self._detect_merge)
+        self._wrap(lc, "_candidates", self._candidates)
+        self._wrap(lc, "_solve_pair", self._solve_pair)
+        self._wrap(lc, "_group_score", self._group_score)
+        self._wrap(lcm, pairs_fn, self._pairs)
+        self._wrap(lcm, "_matched_pairs_cross", self._pairs_cross)
+        self._wrap(lcm, "cross_place_scores", self._cross_scores)
+        self._wrap(sim3, "ransac_sim3_reproj", self._ransac)
+        self._wrap(trk, "descriptor_place_scores", self._dense)
+        self._wrap(kdb, "query_sparse", self._sparse)
+
+    def _wrap(self, obj, name, fn):
+        """Route `obj.name` through `fn`; outside an entry call (the
+        tracking step may call the same module functions) the original
+        runs alone."""
+        orig = getattr(obj, name)
+        self._undo.append((obj, name, orig))
+
+        def wrapped(*a, **k):
+            if self._active or fn in self._entries:
+                return fn(orig, *a, **k)
+            return orig(*a, **k)
+
+        setattr(obj, name, wrapped)
+
+    def restore(self):
+        for obj, name, orig in reversed(self._undo):
+            setattr(obj, name, orig)
+        self._undo = []
+
+    def _pending(self):
+        p = self.lc.pending
+        return None if p is None else [int(p["cand"]), int(p["slot"]),
+                                       int(p["count"])]
+
+    def _enter(self, kind, orig, *a, **k):
+        row = dict(kind=kind, frame=self.frame, slot=int(a[1]),
+                   pending_in=self._pending(), solves=[], groups=[])
+        self.rows.append(row)
+        self._active = True
+        try:
+            out = orig(*a, **k)
+        finally:
+            self._active = False
+        row.update(pending_out=self._pending(),
+                   n_loops=int(self.lc.n_loops),
+                   n_merges=int(self.lc.n_merges))
+        return row, out
+
+    def _on_keyframe(self, orig, m, slot, **kw):
+        row, (m2, closed) = self._enter("loop", orig, m, slot, **kw)
+        row["closed"] = bool(closed)
+        return m2, closed
+
+    def _detect_merge(self, orig, atlas, slot):
+        row, hit = self._enter("merge", orig, atlas, slot)
+        row["hit"] = None if hit is None else [int(x) for x in hit]
+        return hit
+
+    def _candidates(self, orig, m, slot, cov):
+        cands = orig(m, slot, cov)
+        self.rows[-1]["candidates"] = [int(c) for c in cands]
+        self.rows[-1]["covis"] = np.asarray(cov[slot]).tolist()
+        return cands
+
+    def _dense(self, orig, m, slot):
+        scores = orig(m, slot)
+        self.rows[-1]["dense_scores"] = np.asarray(scores).tolist()
+        return scores
+
+    def _cross_scores(self, orig, *a, **k):
+        scores = orig(*a, **k)
+        self.rows[-1].setdefault("cross_scores", []).append(
+            np.asarray(scores).tolist())
+        return scores
+
+    def _sparse(self, orig, *a, **k):
+        scores, top, ok = orig(*a, **k)
+        top_l = np.asarray(top).tolist()
+        self.rows[-1]["sparse_top"] = dict(
+            slots=top_l, scores=np.asarray(scores)[top_l].tolist(),
+            ok=np.asarray(ok).tolist())
+        return scores, top, ok
+
+    def _solve_pair(self, orig, m, slot, cand):
+        solve = dict(cand=int(cand))
+        self.rows[-1]["solves"].append(solve)
+        res = orig(m, slot, cand)
+        solve.update(ok=res is not None, inliers=None if res is None
+                     else int(res.n_inliers))
+        return res
+
+    def _pairs(self, orig, *a, **k):
+        pairs = orig(*a, **k)
+        if self.rows[-1]["solves"]:
+            self.rows[-1]["solves"][-1]["pairs"] = int(
+                np.asarray(pairs.valid).sum())
+        return pairs
+
+    def _pairs_cross(self, orig, m_a, slot_a, m_b, slot_b):
+        solve = dict(cand=int(slot_b))
+        self.rows[-1]["solves"].append(solve)
+        pairs = orig(m_a, slot_a, m_b, slot_b)
+        solve["pairs"] = int(np.asarray(pairs.valid).sum())
+        return pairs
+
+    def _ransac(self, orig, key, pairs, *a, **k):
+        if self.draws is not None:
+            import jax
+            import jax.numpy as jnp
+            import torch
+            logits = jnp.where(pairs.valid, 0.0, -1e9)
+            self.draws.append(torch.as_tensor(np.asarray(
+                jax.random.categorical(key, logits[None, None, :],
+                                       shape=(k.get("n_hyp", N_HYP_SIM3),
+                                              3)))).to(torch.int64))
+        res = orig(key, pairs, *a, **k)
+        self.rows[-1]["solves"][-1].update(
+            ransac=bool(res.success), ransac_inliers=int(res.n_inliers))
+        return res
+
+    def _group_score(self, orig, m, slot, cand, cov, s, R, t):
+        score = orig(m, slot, cand, cov, s, R, t)
+        self.rows[-1]["groups"].append(dict(cand=int(cand),
+                                            score=int(score)))
+        return score
+
+
+def reference_closer_state(lc) -> dict:
+    """The reference `LoopCloser`'s state laid out as
+    `convert.loop_closer_state_to_numpy` lays out the port's."""
+    p, v = lc.pending, lc.vocab
+    return dict(
+        vocab=None if v is None else dict(
+            centers=[np.asarray(c) for c in v.centers],
+            idf=np.asarray(v.idf), k=int(v.k)),
+        db=None if lc.db is None else _np_tree(lc.db),
+        pending=None if p is None else dict(
+            cand=int(p["cand"]), slot=int(p["slot"]), count=int(p["count"]),
+            s=np.asarray(p["s"]), R=np.asarray(p["R"]),
+            t=np.asarray(p["t"])),
+        n_loops=int(lc.n_loops), n_merges=int(lc.n_merges),
+        key=np.asarray(lc.key))
+
+
+def host_state(tr) -> dict:
+    """The reference streaming tracker's host state and its closer's, as
+    `convert.streaming_state_to_numpy` and
+    `loop_closer_state_to_numpy` lay them out."""
+    return dict(map=_np_tree(tr.map), carry=_np_tree(tr.carry),
+                _last_lc_slot=int(tr._last_lc_slot), _t_prev=tr._t_prev,
+                closer=reference_closer_state(tr.loop_closer))
+
+
+def set_port_state(tt, st: dict, closer: dict) -> None:
+    from openmavis_tpu_torch import convert
+    convert.streaming_state_from_numpy(st, tt)
+    convert.loop_closer_state_from_numpy(closer, tt.loop_closer)
+
+
+def closer_state_parts(got: dict, ref: dict) -> dict:
+    """The closer state fields that part: the vocabulary and the
+    database's words exactly, their weights beyond 1e-6, the pending
+    hypothesis's integers exactly and its Sim3 beyond 1e-4, the
+    counters."""
+    out = {}
+    for k in ("n_loops", "n_merges"):
+        if got[k] != ref[k]:
+            out[k] = [got[k], ref[k]]
+    for k in ("vocab", "db", "pending"):
+        a, b = got[k], ref[k]
+        if (a is None) != (b is None):
+            out[k] = "one is None"
+            continue
+        if a is None:
+            continue
+        if k == "vocab":
+            same = (len(a["centers"]) == len(b["centers"]) and all(
+                np.array_equal(x, y) for x, y in zip(a["centers"],
+                                                     b["centers"]))
+                    and np.array_equal(a["idf"], b["idf"]))
+        elif k == "db":
+            same = (np.array_equal(a["word"], b["word"])
+                    and np.array_equal(a["valid"], b["valid"])
+                    and np.allclose(a["wt"], b["wt"], atol=1e-6))
+        else:
+            same = (all(a[f] == b[f] for f in ("cand", "slot", "count"))
+                    and all(np.allclose(a[f], b[f], atol=1e-4)
+                            for f in ("s", "R", "t")))
+        if not same:
+            out[k] = "differs"
+    return out
+
+
+TRACE_KEYS = ("kind", "slot", "pending_in", "dense_scores", "covis",
+              "sparse_top", "cross_scores", "candidates", "solves",
+              "groups", "pending_out", "closed", "hit")
+# the long rows of a trace, left out of a free run's line without
+# --trace-full
+TRACE_LONG = ("dense_scores", "covis")
+
+
+def trace_parts(got: list, ref: list) -> dict:
+    """The fields of this frame's closer rows that part (the sparse
+    scores beyond 1e-5, the rest exactly), with both values."""
+    if len(got) != len(ref):
+        return {"calls": [len(got), len(ref)]}
+    out = {}
+    for a, b in zip(got, ref):
+        for k in TRACE_KEYS:
+            x, y = a.get(k), b.get(k)
+            if k == "sparse_top" and x is not None and y is not None:
+                same = (x["slots"] == y["slots"] and x["ok"] == y["ok"]
+                        and np.allclose(x["scores"], y["scores"],
+                                        atol=1e-5))
+            else:
+                same = x == y
+            if not same:
+                out[k] = dict(port=x, reference=y)
+    return out
+
+
+def step_port_host_lc(s, n) -> list:
+    """Every frame of mode host_lc, from the reference's state of the
+    frame before (the map, the stream carry, `_last_lc_slot`, `_t_prev`
+    and the closer's vocabulary, database, pending hypothesis, counters
+    and key): (1) the port's push with the reference's raw features,
+    held against the reference's state after its push; (2) the port's
+    `maybe_close_loop` from the reference's state after that push, with
+    the reference's RANSAC samples, its decisions (`HostTrace`), its
+    closer state and its map held against the reference's. Returns per
+    frame the fields that part in each."""
+    import torch
+    from openmavis_tpu_torch import convert
+    from openmavis_tpu_torch.frontend import extractor as tex
+    from openmavis_tpu_torch.pipeline import multi_tracking as tmt
+
+    jt, tt = reference_tracker(s), port_tracker(s)
+    jtr = HostTrace(jt.loop_closer, ref=True, draws=True)
+    ttr = HostTrace(tt.loop_closer, ref=False)
+    step = tt._step
+
+    def shared_bank(images):
+        fj = reference_features(s, images.numpy())
+        return tmt.concat_bands(tex.Features(*(torch.as_tensor(np.array(x))
+                                               for x in fj)))
+
+    step.extract_bank = shared_bank
+    rows = []
+    for i in range(n):
+        t, b = s["batches"][i]
+        before = host_state(jt)
+        draws = two_view_draws(s, (before["map"], before["carry"], None),
+                               s["frames"][i])
+        jt.push(s["frames"][i], t, b)
+        mid = host_state(jt)
+        pushed = tracker_record(jt, full=True)
+        jtr.frame = ttr.frame = i
+        jtr.draws.clear()
+        n_rows = len(jtr.rows)
+        jt.maybe_close_loop()
+        after = tracker_record(jt, full=True)
+        # (1) the push
+        set_port_state(tt, before, before["closer"])
+        tt.push(s["frames"][i], t, b, sample_idx=None if draws is None
+                else tuple(torch.as_tensor(x) for x in draws))
+        push_parts = compare(tracker_record(tt, full=True), pushed)
+        # (2) the closer, from the reference's pushed state
+        set_port_state(tt, mid, before["closer"])
+        tt.loop_closer.samples.clear()
+        tt.loop_closer.samples.extend(jtr.draws)
+        t_rows = len(ttr.rows)
+        tt.maybe_close_loop()
+        row = dict(frame=i, mode=int(after["mode"]),
+                   n_kf=int(after["n_kf"]), push_parts=push_parts,
+                   closer_call=len(jtr.rows) > n_rows)
+        if row["closer_call"] or len(ttr.rows) > t_rows:
+            row.update(
+                trace=jtr.rows[n_rows:],
+                trace_parts=trace_parts(ttr.rows[t_rows:],
+                                        jtr.rows[n_rows:]),
+                closer_parts=closer_state_parts(
+                    convert.loop_closer_state_to_numpy(tt.loop_closer),
+                    reference_closer_state(jt.loop_closer)),
+                closed_map_parts=compare(tracker_record(tt, full=True),
+                                         after))
+        rows.append(row)
+        print(json.dumps(row), file=sys.stderr, flush=True)
+    jtr.restore()
+    ttr.restore()
+    return rows
+
+
+def hold_confirm(s, frame: int, seeds) -> dict:
+    """Mode host_lc: both packages run free (closer seed `s["lc_seed"]`)
+    up to `frame` and push it; then each package's closer, seeded with
+    each of `seeds` and given the state of the run whose map it gets
+    (its pending hypothesis), decides on each package's map of that
+    frame. The correction is skipped (only the decision is read).
+    Returns, for each map and closer, the loops closed over the seeds
+    and the first solve's pairs and RANSAC inliers of each seed."""
+    import jax.numpy as jnp
+    from openmavis_tpu.optim.reprojection import RigParams
+    from openmavis_tpu.pipeline import loop_closing as jlc
+    from openmavis_tpu.slam_map import map_state as jms
+    from openmavis_tpu_torch import convert
+    from openmavis_tpu_torch.pipeline import loop_closing as tlc
+
+    runs = {}
+    for name, tr in (("reference", reference_tracker(s)),
+                     ("port", port_tracker(s))):
+        for i in range(frame + 1):
+            t, b = s["batches"][i]
+            tr.push(s["frames"][i], t, b)
+            if i < frame:
+                tr.maybe_close_loop()
+        runs[name] = dict(
+            map=(_np_tree(tr.map) if name == "reference"
+                 else convert.map_to_numpy(tr.map)),
+            closer=(reference_closer_state(tr.loop_closer)
+                    if name == "reference"
+                    else convert.loop_closer_state_to_numpy(tr.loop_closer)),
+            slot=int(np.asarray(tr.map.n_kf)) - 1,
+            last=tr._last_lc_slot)
+    r = s["rig_np"]
+    jrig_args = [jnp.asarray(r[k]) for k in ("params", "R_cb", "t_cb")]
+    trig = convert.rig_from_numpy(r, device="cpu")
+    out = {}
+    for map_name, run in runs.items():
+        if run["slot"] == run["last"]:
+            raise SystemExit("frame %d inserts no keyframe in the %s run"
+                             % (frame, map_name))
+        st = run["closer"]
+        for closer_name in ("reference", "port"):
+            rows = []
+            for seed in seeds:
+                if closer_name == "reference":
+                    lc = jlc.LoopCloser(None, 64, seed=seed,
+                                        rig=RigParams(r["kind"], *jrig_args),
+                                        inertial=True, img_w=640,
+                                        img_h=480)
+                    p = st["pending"]
+                    lc.pending = None if p is None else dict(
+                        p, **{k: jnp.asarray(p[k]) for k in "sRt"})
+                    lc.vocab = (None if st["vocab"] is None else
+                                jlc.voc.Vocabulary(
+                                    tuple(jnp.asarray(c) for c in
+                                          st["vocab"]["centers"]),
+                                    jnp.asarray(st["vocab"]["idf"]),
+                                    st["vocab"]["k"]))
+                    lc.db = (None if st["db"] is None else
+                             jlc.kdb.SparseKeyframeDB(
+                                 **{k: jnp.asarray(v)
+                                    for k, v in st["db"].items()}))
+                    m = jms.MapState(**{k: jnp.asarray(v)
+                                        for k, v in run["map"].items()})
+                else:
+                    lc = tlc.LoopCloser(None, 64, seed=seed, rig=trig,
+                                        inertial=True, img_w=640,
+                                        img_h=480, device="cpu")
+                    convert.loop_closer_state_from_numpy(
+                        {k: v for k, v in st.items() if k != "key"}, lc)
+                    m = convert.map_from_numpy(run["map"], device="cpu")
+                lc._correct = lambda m, *a: m
+                trace = HostTrace(lc, ref=closer_name == "reference")
+                try:
+                    _, closed = lc.on_keyframe(m, run["slot"])
+                finally:
+                    trace.restore()
+                sol = trace.rows[-1]["solves"]
+                rows.append(dict(seed=seed, closed=bool(closed),
+                                 first_solve=sol[0] if sol else None))
+            key = "%s_map__%s_closer" % (map_name, closer_name)
+            out[key] = dict(
+                slot=run["slot"], pending=st["pending"] and [
+                    st["pending"][k] for k in ("cand", "slot", "count")],
+                closed=sum(x["closed"] for x in rows), seeds=rows)
+            print(json.dumps({key: out[key]}), file=sys.stderr, flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # runs
 # ---------------------------------------------------------------------------
 
@@ -359,10 +854,13 @@ def summary(s, n, recs, traj) -> dict:
         horn_scale=float(a.get("scale", np.nan)))
 
 
-def run_reference(s, n, attempts=None, dump=None, dump_frames=None):
+def run_reference(s, n, attempts=None, dump=None, dump_frames=None,
+                  trace=None):
     if attempts is not None:
         attempts.install_reference()
     tr = reference_tracker(s)
+    if tr.loop_closer is not None:
+        trace.append(HostTrace(tr.loop_closer, ref=True))
     recs, draws = [], {}
     for i in range(n):
         t, b = s["batches"][i]
@@ -374,6 +872,9 @@ def run_reference(s, n, attempts=None, dump=None, dump_frames=None):
                 draws[i] = d
         t0 = time.perf_counter()
         tr.push(s["frames"][i], t, b)
+        if tr.loop_closer is not None:
+            trace[0].frame = i
+            tr.maybe_close_loop()
         recs.append(tracker_record(tr))
         if dump and dump_frames is not None and i in dump_frames:
             save_state(dump, i, reference_state(tr), draws.get(i))
@@ -384,10 +885,12 @@ def run_reference(s, n, attempts=None, dump=None, dump_frames=None):
     return recs, tr.get_trajectory()
 
 
-def run_port(s, n, attempts=None, draws=None):
+def run_port(s, n, attempts=None, draws=None, trace=None):
     tr = port_tracker(s)
     if attempts is not None:
         attempts.install_port(tr)
+    if tr.loop_closer is not None:
+        trace.append(HostTrace(tr.loop_closer, ref=False))
     recs = []
     for i in range(n):
         t, b = s["batches"][i]
@@ -399,6 +902,9 @@ def run_port(s, n, attempts=None, draws=None):
                                                draws)
         t0 = time.perf_counter()
         tr.push(s["frames"][i], t, b, sample_idx=sample_idx)
+        if tr.loop_closer is not None:
+            trace[0].frame = i
+            tr.maybe_close_loop()
         recs.append(tracker_record(tr))
         if i < 3 or (i + 1) % 20 == 0:
             print("port frame %d: %.1f s, mode %d, n_kf %d"
@@ -703,15 +1209,11 @@ def two_view_check(s, frame: int) -> dict:
     per E hypothesis the score of each package's float32 8-point solve
     and of the float64 one (the reference's code under x64): the winning
     hypothesis of each, and the singular values of the 8 x 9 system of the
-    port's winner."""
-    import jax
+    port's winner (`two_view_compare`)."""
     import jax.numpy as jnp
-    import torch
     from openmavis_tpu.frontend import extractor as jex
     from openmavis_tpu.frontend import matcher
     from openmavis_tpu.geometry import cameras as jcam
-    from openmavis_tpu.solvers import two_view as jtv
-    from openmavis_tpu_torch.solvers import two_view as ttv
 
     tr = reference_tracker(s)
     for i in range(frame):
@@ -741,16 +1243,39 @@ def two_view_check(s, frame: int) -> dict:
 
     x1 = bearing_z1(c["ref_bank"]["xy"][:F])[np.where(matched, idx, 0)]
     x2 = bearing_z1(np.asarray(xy))
-    focal = float(r["params"][0, 0])
-    i8, i4 = draws_from_key(c["key"], matched)
-    sub = jax.random.split(jnp.asarray(c["key"]))[1]
+    out = dict(frame=frame)
+    out.update(two_view_compare(
+        c["key"], x1, x2, matched, float(r["params"][0, 0]),
+        init_min_inliers(s)))
+    return out
+
+
+def two_view_compare(key, x1, x2, matched, focal: float,
+                     min_inliers: int) -> dict:
+    """One two-view attempt in both packages from the same matches and
+    the samples the reference draws from `key` (its carry or tracker key
+    before the attempt: split once, then as `two_view.reconstruct`
+    draws): each package's `reconstruct` (success, good points, model),
+    and per E hypothesis the score of each package's float32 8-point
+    solve and of the float64 one (the reference's code under x64): the
+    winning hypothesis of each, the singular values of the 8 x 9 system
+    of the port's winner, and how many hypotheses score more than 1 off
+    their float64 value."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from openmavis_tpu.solvers import two_view as jtv
+    from openmavis_tpu_torch.solvers import two_view as ttv
+
+    i8, i4 = draws_from_key(key, matched)
+    sub = jax.random.split(jnp.asarray(key))[1]
     res_j = jtv.reconstruct(sub, jnp.asarray(x1), jnp.asarray(x2),
                             jnp.asarray(matched), focal=focal,
-                            min_inliers=init_min_inliers(s))
+                            min_inliers=min_inliers)
     res_t = ttv.reconstruct(None, torch.as_tensor(x1), torch.as_tensor(x2),
                             torch.as_tensor(matched),
                             focal=torch.tensor(focal),
-                            min_inliers=init_min_inliers(s),
+                            min_inliers=min_inliers,
                             sample_idx=(torch.as_tensor(i8),
                                         torch.as_tensor(i4)))
     bad = (~matched[i8]).any(-1)
@@ -773,7 +1298,7 @@ def two_view_check(s, frame: int) -> dict:
     repeated = np.array([len(set(row.tolist())) < 8 for row in i8])
     ok = ~bad
     return dict(
-        frame=frame, matched=int(matched.sum()),
+        matched=int(matched.sum()),
         reference=dict(success=bool(res_j.success),
                        good=int(res_j.is_good.sum())),
         port=dict(success=bool(res_t.success),
@@ -797,6 +1322,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("mode", choices=MODES)
     p.add_argument("--frames", type=int)
+    p.add_argument("--seed", type=int, default=100)
     p.add_argument("--port", action="store_true")
     p.add_argument("--attempts", action="store_true")
     p.add_argument("--dump")
@@ -805,12 +1331,16 @@ def main() -> int:
     p.add_argument("--port-draws", action="store_true")
     p.add_argument("--hold-attempt", type=int, metavar="FRAME")
     p.add_argument("--two-view", type=int, metavar="FRAME")
+    p.add_argument("--trace-full", action="store_true")
+    p.add_argument("--hold-confirm", type=int, metavar="FRAME")
     args = p.parse_args()
     n = args.frames or dict(flagship=cs.N_FRAMES,
                             mono_inertial_euroc=cs.N_FRAMES_MONO,
-                            long=200)[args.mode]
+                            long=200,
+                            host_lc=cs.N_FRAMES_HOST_LC)[args.mode]
     t0 = time.perf_counter()
-    s = setup(args.mode, n)
+    s = setup(args.mode, n, args.seed)
+    host = args.mode == "host_lc"
     dump_frames = None
     if args.dump_frames:
         a, _, b = args.dump_frames.partition("-")
@@ -818,14 +1348,31 @@ def main() -> int:
     if args.dump:
         os.makedirs(args.dump, exist_ok=True)
     attempts = (Attempts(args.dump)
-                if args.attempts or args.step_port else None)
+                if (args.attempts or args.step_port) and not host else None)
     out = dict(mode=args.mode, package="port" if args.port else "reference")
+    if host:
+        out["lc_seed"] = args.seed
+    trace = []
     if args.two_view is not None:
         out.update(package="both, from the reference's state",
                    **two_view_check(s, args.two_view))
     elif args.hold_attempt is not None:
         out.update(package="both, on the reference's map at the attempt",
                    **hold_attempt(s, args.dump, args.hold_attempt))
+    elif args.hold_confirm is not None and host:
+        out.update(package="both closers on both maps",
+                   frame=args.hold_confirm,
+                   **hold_confirm(s, args.hold_confirm, range(100, 108)))
+    elif args.step_port and host:
+        rows = step_port_host_lc(s, n)
+        out.update(package="port stepped from the reference",
+                   first_push_part=next((r["frame"] for r in rows
+                                         if r["push_parts"]), None),
+                   first_closer_part=next(
+                       (r["frame"] for r in rows
+                        if r.get("trace_parts") or r.get("closer_parts")),
+                       None),
+                   frames=rows)
     elif args.step_port:
         out.update(package="port stepped from the reference",
                    frames=step_port(s, n, attempts))
@@ -834,14 +1381,20 @@ def main() -> int:
         out.update(package="port with the reference's two-view draws",
                    **summary(s, n, recs, traj))
     elif args.port:
-        recs, traj = run_port(s, n, attempts)
+        recs, traj = run_port(s, n, attempts, trace=trace)
         out.update(summary(s, n, recs, traj))
     else:
-        recs, traj = run_reference(s, n, attempts, args.dump, dump_frames)
+        recs, traj = run_reference(s, n, attempts, args.dump, dump_frames,
+                                   trace=trace)
         out.update(summary(s, n, recs, traj))
     if attempts is not None and not args.step_port:
         out["attempts"] = [{k: v for k, v in r.items() if k != "key"}
                            for r in attempts.rows]
+    if trace:
+        trace[0].restore()
+        out["lc_trace"] = [{k: v for k, v in r.items()
+                            if args.trace_full or k not in TRACE_LONG}
+                           for r in trace[0].rows]
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out))
     return 0

@@ -190,6 +190,29 @@ def test_candidates(staged, route):
                                       _np(jl.db.word))
 
 
+@pytest.mark.parametrize("scores", ["dense", "sparse"])
+def test_top3_ties_resolve_as_lax_top_k(scores):
+    """The closers' top 3 among equal scores: `topk_stable` (the port's
+    `_candidates` and `detect_merge`) picks the same slots in the same
+    order as `jax.lax.top_k` (the reference's), lowest slot first, on
+    64-slot rows whose best values repeat: the dense route's integer
+    counts with excluded slots at -1, the sparse route's float32 scores
+    with excluded slots at -1.0."""
+    from openmavis_tpu_torch.frontend.fast import topk_stable
+
+    rng = np.random.default_rng(14)
+    for _ in range(50):
+        if scores == "dense":
+            row = rng.integers(0, 4, 64).astype(np.int32) * 300
+        else:
+            row = rng.choice(np.float32([0.0, 0.11, 0.125, 0.13]), 64)
+        row[rng.random(64) < 0.3] = -1
+        j_val, j_idx = jax.lax.top_k(jnp.asarray(row), 3)
+        t_val, t_idx = topk_stable(torch.as_tensor(row), 3)
+        np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+        np.testing.assert_array_equal(t_val.numpy(), np.asarray(j_val))
+
+
 # ---------------------------------------------------------------------------
 # one hypothesis
 # ---------------------------------------------------------------------------
