@@ -84,7 +84,7 @@ Phases (any failure raises; the exit code is then nonzero):
   6. drive path 4, "rgbd_inertial" (IMU_RGBD): a 640 x 480 pinhole
      (fx = fy = 382.6) with rendered depth maps, `use_depth` (256 depth
      landmarks a keyframe at most, up to 25 m), the same ORB and IMU,
-     loop closing off, 80 frames. Gates: rig init from depth on frame 0,
+     loop closing off, 50 frames. Gates: rig init from depth on frame 0,
      all but 8 frames tracked, |horn_scale - 1| <= 0.06, ATE without scale
      <= 0.35 m;
   7. drive path 5, "multi_tracker": phase 3's rig and scene through the
@@ -97,29 +97,29 @@ Phases (any failure raises; the exit code is then nonzero):
      on the estimate made by frame 39 and at most the reference package's
      own 0.380 m over 160 frames and a third;
   8. drive path 6, "multi_tracker_mono": phase 5's camera through
-     `MultiTracker` with no stereo pair (IMU_MONOCULAR), 30 frames. Gates:
+     `MultiTracker` with no stereo pair (IMU_MONOCULAR), 21 frames. Gates:
      two-view init by frame 20, `hamming_best2` at 1,000 x 1,000 launched
      by it (direct and through mask.T), every pose finite.
   9. drive path 7, "mono_tracker" (MONOCULAR as `System` builds it):
      `tracking.Tracker` on phase 5's EuRoC camera (752 x 480, radtan
      images, `dist` given), 1,000 ORB features x 8 levels,
      `TrackerConfig`'s defaults (64 keyframes, 8,192 landmarks), no atlas,
-     no loop closer, 100 frames with frames 60-63 black. Gates: two-view
+     no loop closer, 70 frames with frames 60-63 black. Gates: two-view
      init by frame 20; all but 10 of frames 0-59 tracked; no black frame
      tracked; the untracked frames beyond the black ones at most the
-     reference package's own 38 at this configuration and a third (it
+     reference package's own 8 at this configuration and a third (it
      never relocalizes after the blackout: scripts/reference_tracker.py);
      `relocalize_step` on every LOST frame (three direct and three
      mask.T 1,000 x 1,000 launches); n_kf >= 2; > 100 landmarks; ATE
      (Horn scale) <= 5% of the tracked path (`horn_scale` printed);
  10. drive path 8, "rgbd_tracker" (RGBD): `Tracker` with depth maps on
      phase 6's 640 x 480 camera, 1,000 x 8, `TrackerConfig`'s defaults,
-     80 frames. Gates: init from depth on frame 0, >= 78 tracked, ATE
+     50 frames. Gates: init from depth on frame 0, >= 48 tracked, ATE
      without scale <= 0.30 m, 0.8 < horn_scale < 1.25;
  11. drive path 9, "mono_streaming": `streaming.StreamingTracker` as
      `examples/mono_euroc.py --streaming` builds it (the EuRoC pinhole
      without distortion, the images rendered undistorted, 1,000 x 8,
-     64 keyframes, 16,384 landmarks), 80 frames. Gates: n_kf >= 3, more
+     64 keyframes, 16,384 landmarks), 50 frames. Gates: n_kf >= 3, more
      than 80% of the frames from frame 3 on tracked, ATE (Horn scale)
      <= 0.15 m.
  12. drive path 10, "host_lc": the flagship example's combination,
@@ -207,19 +207,23 @@ Phases (any failure raises; the exit code is then nonzero):
      card within 1e-4 of the CPU's. It times `remap_multicam` alone (CUDA
      events, one 2 x 480 x 752 frame).
  19. drive path 17, "example_multi_inertial": the flagship main as a user
-     runs it from disk. Path 1's 160 frames are written in the EuRoC
+     runs it from disk. Path 1's first 91 frames are written in the EuRoC
      layout (four camera directories of zlib PNGs, the 400 Hz IMU csv, a
      TUM ground truth) with a settings file from `scene.system_settings`
      (the flagship rig), and `examples.multi_inertial_euroc.main` runs on
      them in this process with `--cams cam0,cam1,cam2,cam3 --lc-every 30
      --max-kf 64 --max-mp 16384` (the streaming VI tracker with a host
      LoopCloser). Gates (path 1's): `imu_init=True` in the main's output,
-     >= 152 of 160 rows in its trajectory file, that file's ATE (Horn
+     >= 83 of 91 rows in its trajectory file, that file's ATE (Horn
      scale) <= 0.15 m with |scale - 1| <= 0.1, every frame the loader
-     decoded equal to the rendered frame, both kernels launched. It
-     prints the frame median and p90 from frame 10 on (a synchronized
-     timer around `push`), the loops and the reference main's figures at
-     this configuration (scripts/reference_examples.py flagship).
+     decoded equal to the rendered frame, both kernels launched, and
+     the LoopCloser's keyframe-pair search run (`hamming_best2` at
+     2,048 x 2,048, directly and through mask.T; frame 90's call is the
+     first that reaches it). It prints the frame median and p90 from
+     frame 10 on (a synchronized timer around `push`), each LoopCloser
+     call's keyframes and pair launches, the loops and the reference
+     main's figures at this configuration
+     (scripts/reference_examples.py flagship).
  20. drive path 18, "distributed_gba": scripts/dryrun_multihost_torch.py
      with `--device cuda --backend gloo`, two processes sharing the one
      card over gloo (NCCL refuses two ranks on one GPU): both join one
@@ -307,7 +311,9 @@ LONG = dict(n_frames=800, orbit_frac=2.2, max_kf=256, max_mp=32768,
 # the single-camera paths: features per frame and frames
 SINGLE_FEATURES = 1000
 N_FRAMES_MONO = 50
-N_FRAMES_RGBD = 80
+# path 4: 50 frames (80 until the script needed the time; its gates read
+# the whole run: rig init on frame 0, frames tracked, scale, ATE)
+N_FRAMES_RGBD = 50
 # path 3 holds the bands of the reference's own mono test (tracking all
 # but 4 frames, the scale within 0.2, ATE 0.5 m) on the estimate made by
 # frame 49 (2.5 s: the first IMU init and 35 frames after). Over longer
@@ -331,16 +337,20 @@ MT_BAND_FRAME = 79
 MT5_BAND_FRAME = 39
 MT5_REF_ATE_M = 0.025
 N_FRAMES_MT = MT5_BAND_FRAME + 1
-# path 6: the mono-inertial camera through the host-policy tracker, to 10
-# frames past its gate (the two-view init by frame 20)
-N_FRAMES_MT_MONO = 30
+# path 6: the mono-inertial camera through the host-policy tracker, to its
+# gate's frame (the two-view init by frame 20; 30 frames until the script
+# needed the time)
+N_FRAMES_MT_MONO = 21
 # paths 7-9: the one-camera visual trackers at TrackerConfig's defaults
 # (64 keyframes, 8,192 landmarks) and at examples/mono_euroc.py --streaming
 # (16,384 landmarks)
-N_FRAMES_TRACKER = 100
+# (paths 7-9 ran 100, 80 and 80 frames until the script needed the time;
+# path 7 stops 6 frames past its blackout, paths 8 and 9 read every frame
+# of a 50-frame run)
+N_FRAMES_TRACKER = 70
 TRACKER_BLACKOUT = range(60, 64)
-N_FRAMES_RGBD_TRACKER = 80
-N_FRAMES_STREAMING = 80
+N_FRAMES_RGBD_TRACKER = 50
+N_FRAMES_STREAMING = 50
 TRACKER_MAX_MP = 8192
 STREAMING_MAX_MP = 16384
 # the reference package's Tracker at path 7's configuration on the CPU
@@ -350,9 +360,11 @@ STREAMING_MAX_MP = 16384
 # its relocalization finds no pose); with seeds 0 and 3 it never
 # initializes. So the band "all but the black frames and at most 10
 # others tracked" holds on frames 0-59, and over the whole run the
-# untracked frames beyond the black ones are held to the reference's 38
-# and a third; recovery after the blackout is printed, not gated
-TRACKER_REF_UNTRACKED = 38
+# untracked frames beyond the black ones are held to the reference's and
+# a third: 38 over its 100 frames, of which its first 70 (a causal run)
+# hold 8, the 6 frames after the blackout and 2 before it; recovery
+# after the blackout is printed, not gated
+TRACKER_REF_UNTRACKED = 8
 # path 10: the flagship example's combination, StreamingVITracker with the
 # host-policy LoopCloser and maybe_close_loop() after every push, on path
 # 2's scene (path 1's orbit continued, no blackout) and path 1's 64-KF
@@ -478,13 +490,22 @@ STEREO_REF = dict(rectified_ate_m=0.0166, control_ate_m=0.0127)
 # the bound tests/test_torch_frontend.py holds the CPU port to against JAX)
 EXTRACT_TIE_GAP = 2e-5
 # path 17: the flagship main, examples/multi_inertial_euroc, from disk;
-# path 1's gates on its trajectory file. The reference main at this
-# configuration on the CPU (scripts/reference_examples.py flagship):
-# 160 rows, 18 keyframes, the IMU initialized, no loop, ATE (Horn scale)
-# 0.0334 m at scale 0.9975
-EXAMPLE_REF = dict(rows=160, keyframes=18, imu_init=True, loops=0,
-                   ate_m=0.0334, scale=0.9975)
-EXAMPLE_MIN_ROWS = 152
+# path 1's gates on its trajectory file, on the first 91 frames (160
+# until the script needed the time; the IMU initializes on frame 30 of
+# this scene). The main calls its LoopCloser on frames 30, 60, 90, ...
+# (--lc-every 30); frame 90's call (11 keyframes) is the first with a
+# candidate older than `recent_exclude` keyframes, so the first to run
+# the keyframe-pair search (2,048 x 2,048 launches on frames 30 / 60 /
+# 90 / 120 / 150 of the 160: 0 / 0 / 4 / 4 / 6), which is gated. The
+# reference main at this configuration on the CPU
+# (scripts/reference_examples.py flagship [--max-frames 60]), by frames:
+# no loop either way
+N_FRAMES_EXAMPLE = 91
+EXAMPLE_REF = {60: dict(rows=60, keyframes=8, imu_init=True, loops=0,
+                        ate_m=0.0267, scale=0.9947),
+               160: dict(rows=160, keyframes=18, imu_init=True, loops=0,
+                         ate_m=0.0334, scale=0.9975)}
+EXAMPLE_MIN_ROWS = N_FRAMES_EXAMPLE - 8
 # `run_global_ba(mesh=1)` against `run_global_ba()` from the same state
 # (paths 1 and 15): chi2 relative, every keyframe position and the
 # observed landmarks in metres, and the bindings that may differ (one
@@ -2393,7 +2414,7 @@ def phase_multi_tracker_mono(torch, dev, mc, card: str,
                              stages: bool = False):
     """Path 6: path 3's EuRoC camera (752 x 480, radtan `dist`, 1,000
     features x 8 levels, 200 Hz IMU) through `MultiTracker` with no stereo
-    pair (IMU_MONOCULAR), 30 frames. Gates: the two-view init by frame
+    pair (IMU_MONOCULAR), 21 frames. Gates: the two-view init by frame
     20, `hamming_best2` at 1,000 x 1,000 launched by it (direct and
     through mask.T), every pose finite. Frames tracked, the scale and the
     ATE are printed, not gated (PERF.md section 6)."""
@@ -2660,11 +2681,12 @@ def phase_visual_tracker(torch, dev, mc, card: str, path: str,
              "ATE (Horn scale) <= 5% of the tracked path's length")]
         print("mono_tracker: init on frame %s (%s); %d of %d tracked (%d "
               "black); LOST frames %s; first tracked after the blackout %s "
-              "(the reference package: none of the 36); horn_scale %.4f "
+              "(the reference package: none of the %d); horn_scale %.4f "
               "(not gated), ATE %.4f m of a %.2f m path"
               % (out["init_frame"], init, out["frames_tracked"], n,
-                 len(black), out["lost_frames"], back, out["horn_scale"],
-                 out["ate_rmse_m"], out["tracked_path_length_m"]))
+                 len(black), out["lost_frames"], back, n - black[-1] - 1,
+                 out["horn_scale"], out["ate_rmse_m"],
+                 out["tracked_path_length_m"]))
     elif path == "rgbd_tracker":
         checks += [
             (bool(ok[0]) and per_frame[0]["n_kf"] == 1,
@@ -3757,20 +3779,23 @@ def extraction_check(torch, dev, card: str) -> dict:
 def phase_example_multi_inertial(torch, dev, mc, card: str,
                                  stages: bool = False):
     """Path 17: the flagship main as a user runs it from disk. Path 1's
-    160 frames are written in the EuRoC layout (mav0/cam0..cam3 PNGs with
-    zlib, mav0/imu0/data.csv at 400 Hz, a TUM ground truth) with a
+    first N_FRAMES_EXAMPLE frames are written in the EuRoC layout
+    (mav0/cam0..cam3 PNGs with zlib, mav0/imu0/data.csv at 400 Hz, a TUM ground truth) with a
     settings file from `scene.system_settings` (the flagship rig: 4 x
     KannalaBrandt8 at 640 x 480, 512 x 8 ORB, the bench's IMU noise), and
     `examples.multi_inertial_euroc.main` runs on them in this process
     with `--cams cam0,cam1,cam2,cam3 --lc-every 30 --max-kf 64
     --max-mp 16384`: the streaming VI tracker with a host LoopCloser.
     Gates (path 1's): `imu_init=True` in the main's output, at least
-    EXAMPLE_MIN_ROWS of 160 rows in its trajectory file, the ATE (Horn
-    scale) of that file <= 0.15 m with |scale - 1| <= 0.1, every frame
-    the loader decoded equal to the rendered frame as float32, both
-    kernels launched. Printed: the frame ms median and p90 from frame 10
-    on (a synchronized timer around `push`), the loops closed and the
-    reference main's figures (EXAMPLE_REF)."""
+    EXAMPLE_MIN_ROWS of N_FRAMES_EXAMPLE rows in its trajectory file, the
+    ATE (Horn scale) of that file <= 0.15 m with |scale - 1| <= 0.1,
+    every frame the loader decoded equal to the rendered frame as float32, both
+    kernels launched, the LoopCloser's keyframe-pair search run
+    (`hamming_best2` at 2,048 x 2,048, as often directly as through
+    mask.T). Printed: the frame ms median and p90 from frame 10 on (a
+    synchronized timer around `push`), each LoopCloser call's keyframes
+    and pair launches, the loops closed and the reference main's figures
+    (EXAMPLE_REF)."""
     import contextlib
     import io
     import shutil
@@ -3779,8 +3804,9 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
     from openmavis_tpu_torch.io import datasets, evaluation
     from openmavis_tpu_torch.pipeline import streaming_vi
 
-    n = N_FRAMES
+    n = N_FRAMES_EXAMPLE
     rig_np, frames, _, t_wb, batches = flagship_sequence()
+    frames, t_wb, batches = frames[:n], t_wb[:n], batches[:n]
     root = os.path.join(REPO, "build", "chip_smoke_example")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3797,9 +3823,11 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
     # probes: every decoded frame against the rendered one, and a
     # synchronized timer around each push
     decoded = {"frames": 0, "mismatched": 0}
-    frame_ms, made = [], []
+    frame_ms, made, lc_calls = [], [], []
+    cf = 4 * N_FEATURES
     orig_frame = datasets.Sequence.frame
     orig_push = streaming_vi.StreamingVITracker.push
+    orig_lc = streaming_vi.StreamingVITracker.maybe_close_loop
 
     def frame(self, i):
         x = orig_frame(self, i)
@@ -3817,9 +3845,21 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
 
+    def maybe_close_loop(self):
+        # the keyframe-pair searches of each call: its 2,048 x 2,048
+        # launches, direct and through mask.T
+        before = mc.launch_count("hamming_best2", cf, cf)
+        closed = orig_lc(self)
+        lc_calls.append(dict(
+            frame=len(frame_ms) - 1, n_kf=int(self.n_kf),
+            pair_launches=mc.launch_count("hamming_best2", cf, cf) - before,
+            closed=bool(closed)))
+        return closed
+
     err = io.StringIO()
     datasets.Sequence.frame = frame
     streaming_vi.StreamingVITracker.push = push
+    streaming_vi.StreamingVITracker.maybe_close_loop = maybe_close_loop
     torch.cuda.synchronize()
     mc.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3832,6 +3872,7 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
     finally:
         datasets.Sequence.frame = orig_frame
         streaming_vi.StreamingVITracker.push = orig_push
+        streaming_vi.StreamingVITracker.maybe_close_loop = orig_lc
     text = err.getvalue()
     print(text, end="")
     tr = made[0]
@@ -3845,6 +3886,7 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
            "imu_init_line": "imu_init=True" in text,
            "n_keyframes": int(tr.n_kf),
            "loop_closures": int(tr.loop_closer.n_loops),
+           "loop_calls": lc_calls,
            "ate_rmse_m": float(res["rmse"]),
            "ate_rmse_noscale_m": float(res["rmse_noscale"]),
            "horn_scale": float(res["scale"]),
@@ -3858,6 +3900,9 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
            **launch_fields(counts),
            "reference": EXAMPLE_REF}
     emit(out)
+    print("example_multi_inertial: LoopCloser calls (frame, keyframes, "
+          "2,048 x 2,048 launches) %s"
+          % [(c["frame"], c["n_kf"], c["pair_launches"]) for c in lc_calls])
     print("example_multi_inertial: %d rows of %d, %d keyframes, %d loops, "
           "ATE (Horn scale) %.5f m, scale %.5f; frame ms median %.1f / p90 "
           "%.1f from frame 10; %d frames decoded, %d unequal; main %.1f s, "
@@ -3877,6 +3922,11 @@ def phase_example_multi_inertial(torch, dev, mc, card: str,
          "every frame decoded equal to the rendered frame"),
         (by_entry["projection_best2"] >= 4 * EXAMPLE_MIN_ROWS
          and by_entry["hamming_best2"] >= 1, "both kernels launched"),
+        (counts.get(("hamming_best2", cf, cf, "rows"), 0) >= 1
+         and counts.get(("hamming_best2", cf, cf, "rows"), 0)
+         == counts.get(("hamming_best2", cf, cf, "T"), 0),
+         "the LoopCloser's keyframe-pair search: hamming_best2 at %dx%d "
+         "launched, as often directly as through mask.T" % (cf, cf)),
         (np.isfinite(traj).all(), "finite trajectory"),
     ]
     gate("example_multi_inertial path", checks)

@@ -43,6 +43,17 @@ the ATE.
                         (`reference_streaming_vi.two_view_compare`; about
                         two minutes)
 
+  fresh_start START [N] [--port]
+                        a fresh session (path 12's B without A's map:
+                        the flagship rig, scene, slab and device loop
+                        closer, seed 1) started on frame START of the
+                        flagship scene, N frames (24); what its rig init
+                        gets (landmarks, their distance from the rig,
+                        the init keyframe's stereo and temporal counts)
+                        and the Horn scale and ATE over its first 4, 8,
+                        12, 16 and N frames; `--port` runs the port's
+                        StreamingVITracker on the CPU instead
+
 Run: JAX_PLATFORMS=cpu python3 scripts/reference_merge.py MODE [ARG ...]
 (ARG: B's seeds for device_merge, the frame count N for
 multi_tracker_atlas; device_merge about five minutes and two more a seed,
@@ -175,6 +186,69 @@ def session_b(tra, seed, frames, t_wb, batches, rig, cfg, noise, lc_kw,
         "b_ate_m": float(res_b["rmse"]),
         "joint_ate_noscale_m": float(joint["rmse_noscale"]),
         "run_s": time.perf_counter() - t0}
+
+
+def fresh_start(start: int, n: int, port: bool) -> dict:
+    n_all = scene.N_FRAMES
+    rig_np, frames, _, t_wb, batches = scene.make_sequence(
+        n_all, orbit_frac=1.25, kind_name="kb8")
+    lc_kw = dict(score_min=30, temporal=2)
+    orb = dict(n_features=512, n_levels=8)
+    if port:
+        import torch
+        from openmavis_tpu_torch import convert
+        from openmavis_tpu_torch.frontend import extractor as tex
+        from openmavis_tpu_torch.imu import preintegration as tpre
+        from openmavis_tpu_torch.pipeline import streaming_vi as tsv
+        torch.set_num_threads(int(os.environ.get("TORCH_THREADS", "1")))
+        tr = tsv.StreamingVITracker(
+            convert.rig_from_numpy(rig_np, device="cpu"),
+            tsv.VIStreamConfig(orb=tex.OrbConfig(**orb),
+                               **scene.bench_config_kwargs(n_all)),
+            tpre.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS, device="cpu"),
+            seed=1, device="cpu", device_lc=lc_kw)
+        to_np = convert._np
+    else:
+        from openmavis_tpu.pipeline import streaming_vi
+        tr = streaming_vi.StreamingVITracker(
+            _flagship_rig(rig_np), streaming_vi.VIStreamConfig(
+                orb=extractor.OrbConfig(**orb),
+                **scene.bench_config_kwargs(n_all)),
+            pre_mod.ImuNoise.from_sigmas(*scene.NOISE_SIGMAS), seed=1,
+            device_lc=lc_kw)
+        to_np = np.asarray
+    t0 = time.perf_counter()
+    init = None
+    for i in range(start, min(start + n, n_all)):
+        tr.push(frames[i], *batches[i])
+        if init is None:
+            m = tr.map
+            k = int(to_np(m.n_mp))
+            pts = to_np(m.mp_pos)[:k].astype(np.float64)
+            d = np.linalg.norm(pts - to_np(m.kf_t)[0], axis=1)
+            init = dict(
+                frame=i, mode=int(to_np(tr.carry.mode)), landmarks=k,
+                distance_m=dict(zip(
+                    ("p10", "p50", "p90", "max"),
+                    [float(x) for x in np.percentile(d, [10, 50, 90])]
+                    + [float(d.max())])),
+                beyond_10m=int((d > 10).sum()),
+                beyond_20m=int((d > 20).sum()))
+    sb = tr.snapshot()
+    t_e, _, p_e = tr.get_trajectory()
+    ok = np.asarray(sb["ok"][:len(t_e)], bool)
+    first = {}
+    for k in (4, 8, 12, 16, n):
+        sel = ok & (np.arange(len(ok)) < k)
+        res = evaluation.ate_rmse(t_e[sel], p_e[sel],
+                                  np.arange(n_all) / scene.FPS_IN, t_wb)
+        first[str(k)] = dict(horn_scale=float(res["scale"]),
+                             ate_m=float(res["rmse"]),
+                             ate_noscale_m=float(res["rmse_noscale"]))
+    return {"mode": "fresh_start", "start": start, "frames": n,
+            "tracked": int(ok.sum()), "n_kf": int(sb["n_kf"]),
+            "rig_init": init, "first_frames": first,
+            "run_s": time.perf_counter() - t0}
 
 
 def multi_tracker_atlas(n: int) -> dict:
@@ -556,6 +630,14 @@ def main() -> int:
             out["package"] = "openmavis_tpu (JAX, CPU)"
             print(json.dumps(out), flush=True)
         return 0
+    elif mode == "fresh_start":
+        rest = [a for a in sys.argv[2:] if a != "--port"]
+        out = fresh_start(int(rest[0]), int(rest[1]) if len(rest) > 1
+                          else 24, "--port" in sys.argv)
+        out["package"] = ("openmavis_tpu_torch (CPU)" if "--port" in
+                          sys.argv else "openmavis_tpu (JAX, CPU)")
+        print(json.dumps(out))
+        return 0
     elif mode == "multi_tracker_atlas":
         out = multi_tracker_atlas(int(sys.argv[2]) if len(sys.argv) > 2
                                   else N_ATLAS)
@@ -576,8 +658,8 @@ def main() -> int:
             print(json.dumps(out))
             return 0
     else:
-        raise SystemExit("MODE: device_merge, multi_tracker_atlas or "
-                         "mono_atlas")
+        raise SystemExit("MODE: device_merge, multi_tracker_atlas, "
+                         "mono_atlas or fresh_start")
     out["package"] = "openmavis_tpu (JAX, CPU)"
     print(json.dumps(out))
     return 0

@@ -23,9 +23,20 @@ blackout, keyframes, landmarks, and ATE with and without Horn scale over
 the tracked frames.
 
 Run: JAX_PLATFORMS=cpu python3 scripts/reference_tracker.py PATH [N [SEED]]
-(PATH one of mono_tracker, rgbd_tracker, mono_streaming; N frames, the
-path's own count by default; SEED the tracker's PRNG seed, 0 by default,
-as the port's paths use; about a minute and a few GiB each).
+[--reloc] (PATH one of mono_tracker, rgbd_tracker, mono_streaming; N
+frames, the path's own count by default; SEED the tracker's PRNG seed, 0
+by default, as the port's paths use; about a minute and a few GiB each).
+
+`--reloc` (mono_tracker): every relocalization attempt of the run taken
+apart on the map it ran on, stage by stage, in both packages: the
+retrieval's scores and top-3 keyframes (and the rank of the keyframe
+nearest the frame's true position, put in the map's frame by the Horn
+alignment of the frames tracked before), each candidate's 2D-3D
+matches, and the PnP's inliers and success: the reference's with its own
+key, the port's `relocalize_step` from the same map and features with
+the reference's samples (`sample_idx`); and the same stages on the
+nearest keyframe (`nearest`), as if the retrieval had picked it. The
+first line is a control: frame 50 (tracked) on the same final map.
 """
 
 import json
@@ -48,6 +59,8 @@ from openmavis_tpu.pipeline import streaming, tracking  # noqa: E402
 from openmavis_tpu_torch import scene  # noqa: E402
 
 FRAMES = dict(mono_tracker=100, rgbd_tracker=80, mono_streaming=80)
+# `--reloc`'s control: a frame tracked before the blackout
+RELOC_CONTROL_FRAME = 50
 BLACKOUT = range(60, 64)
 ORB = dict(n_features=1000, n_levels=8)
 
@@ -78,11 +91,100 @@ def ate(t_est, p_est, ok, t_wb) -> dict:
                                with_scale=True)
 
 
+def reloc_attempts(calls, tr, t_wb, oks) -> list:
+    """Each recorded `relocalize_step` call (frame, map, features, key)
+    taken apart in both packages (see the module docstring)."""
+    import torch
+    from openmavis_tpu.frontend import matcher
+    from openmavis_tpu.geometry import cameras
+    from openmavis_tpu.solvers import pnp
+    from openmavis_tpu_torch import convert
+    from openmavis_tpu_torch.frontend import extractor as tex
+    from openmavis_tpu_torch.io import evaluation as tev
+    from openmavis_tpu_torch.pipeline import tracking as ttrk
+
+    rig = tr.rig
+    _, _, p_est = tr.get_trajectory()
+    ok = np.asarray(oks)
+    first = min(c["frame"] for c in calls)
+    sel = ok & (np.arange(len(ok)) < first)
+    # truth -> map: map ~ s R truth + t
+    s_, R_a, t_a = tev.horn_align(t_wb[:len(ok)][sel], p_est[sel])
+    torch_rig = convert.rig_from_numpy(
+        {"kind": rig.kind, **{k: np.asarray(getattr(rig, k))
+                              for k in ("params", "R_cb", "t_cb")}},
+        device="cpu")
+    out = []
+    for c in calls:
+        m, feats, key, f = c["map"], c["feats"], c["key"], c["frame"]
+        K, F = m.kf_obs.shape
+        dist = matcher.hamming_matrix(
+            feats.desc, m.kf_desc.reshape(K * F, 256)).reshape(-1, K, F)
+        t_valid = m.kf_feat_valid & (m.kf_obs >= 0) & m.kf_valid[:, None]
+        best = jnp.min(jnp.where(t_valid[None], dist, 1 << 20), axis=2)
+        scores = np.asarray(jnp.sum(
+            (best < matcher.TH_LOW).astype(jnp.int32)
+            & feats.valid[:, None].astype(jnp.int32), axis=0))
+        _, cand = jax.lax.top_k(jnp.asarray(scores), 3)
+        cand = np.asarray(cand)
+        # the true position in the map's frame
+        p_true = s_ * R_a @ t_wb[f] + t_a
+        n_kf = int(m.n_kf)
+        kf_t = np.asarray(m.kf_t)[:n_kf]
+        near = int(np.argmin(np.linalg.norm(kf_t - p_true, axis=1)))
+        rank = int(np.sum(scores[:n_kf] > scores[near]))
+        ray = np.asarray(cameras.unproject(rig.kind, rig.params[0],
+                                           feats.xy))
+        ray_b = ray @ np.asarray(rig.R_cb[0])
+        keys = jax.random.split(key, 3)
+        draws = []
+        per_cand = []
+        for j, kf in enumerate(cand.tolist() + [near]):
+            k = keys[j] if j < 3 else jax.random.fold_in(key, 3)
+            has_mp = (m.kf_obs[kf] >= 0) & m.kf_feat_valid[kf]
+            idx, _ = matcher.match_nn(feats.desc, feats.valid,
+                                      m.kf_desc[kf], has_mp,
+                                      max_dist=matcher.TH_LOW, ratio=0.85,
+                                      mutual=True)
+            matched = np.asarray(idx) >= 0
+            safe = np.where(matched, np.asarray(idx), 0)
+            mp = np.where(matched, np.asarray(m.kf_obs[kf])[safe], 0)
+            valid = matched & np.asarray(m.mp_valid)[mp]
+            p_w = np.asarray(m.mp_pos)[mp]
+            res = pnp.ransac_pnp(k, jnp.asarray(p_w),
+                                 jnp.asarray(ray_b), jnp.asarray(valid),
+                                 min_inliers=15, sigma2=feats.sigma2)
+            logits = jnp.where(jnp.asarray(valid), 0.0, -1e9)
+            draws.append(np.asarray(jax.random.categorical(
+                k, logits[None, None, :], shape=(512, 6))))
+            per_cand.append(dict(kf=kf, score=int(scores[kf]),
+                                 matches=int(matched.sum()),
+                                 valid=int(valid.sum()),
+                                 pnp_inliers=int(res.n_inliers),
+                                 pnp_success=bool(res.success)))
+        tm = convert.map_from_numpy(
+            {k: np.asarray(v) for k, v in m._asdict().items()}, device="cpu")
+        ft = tex.Features(*(torch.as_tensor(np.array(x)) for x in feats))
+        ok_t, _, _, n_t = ttrk.relocalize_step(
+            tm, ft, None, torch_rig.kind, torch_rig,
+            sample_idx=torch.as_tensor(np.stack(draws[:3])))
+        out.append(dict(
+            frame=f, success=c["success"], n_inliers=c["n_inliers"],
+            nearest_kf=near, nearest_kf_score=int(scores[near]),
+            nearest_kf_rank=rank, true_dist_to_nearest_kf=float(
+                np.linalg.norm(kf_t[near] - p_true)),
+            candidates=per_cand[:3], nearest=per_cand[3],
+            port=dict(success=bool(ok_t), n_inliers=int(n_t))))
+    return out
+
+
 def main() -> int:
     jax.config.update("jax_platforms", "cpu")
-    path = sys.argv[1]
-    n = int(sys.argv[2]) if len(sys.argv) > 2 else FRAMES[path]
-    seed = int(sys.argv[3]) if len(sys.argv) > 3 else 0
+    reloc = "--reloc" in sys.argv
+    argv = [a for a in sys.argv if a != "--reloc"]
+    path = argv[1]
+    n = int(argv[2]) if len(argv) > 2 else FRAMES[path]
+    seed = int(argv[3]) if len(argv) > 3 else 0
     rig, frames, depths, t_wb, dist = setup(path, n)
     w, h = frames.shape[2], frames.shape[1]
     orb = extractor.OrbConfig(**ORB)
@@ -101,6 +203,18 @@ def main() -> int:
     else:
         cfg = tracking.TrackerConfig(img_w=w, img_h=h, orb=orb)
         tr = tracking.Tracker(rig, cfg, seed=seed, dist=dist)
+        calls = []
+        if reloc:
+            own = tracking.relocalize_step
+
+            def recording(m, feats, key, *a, **k):
+                res = own(m, feats, key, *a, **k)
+                calls.append(dict(frame=i, map=m, feats=feats, key=key,
+                                  success=bool(res[0]),
+                                  n_inliers=int(res[3])))
+                return res
+
+            tracking.relocalize_step = recording
         for i in range(n):
             dep = None if depths is None else jnp.asarray(depths[i])
             oks.append(bool(tr.process_frame(jnp.asarray(frames[i]),
@@ -132,6 +246,16 @@ def main() -> int:
         "horn_scale": float(res["scale"]),
         "path_length_m": float(steps.sum()),
         "run_s": time.perf_counter() - t0}))
+    if reloc and path == "mono_tracker":
+        tracking.relocalize_step = own
+        # a control: a tracked frame before the blackout, on the final map
+        ctrl = RELOC_CONTROL_FRAME
+        calls.insert(0, dict(frame=ctrl, map=tr.map,
+                             feats=tr._ext(jnp.asarray(frames[ctrl])),
+                             key=jax.random.PRNGKey(ctrl), success=None,
+                             n_inliers=None))
+        for row in reloc_attempts(calls, tr, t_wb, oks):
+            print(json.dumps(row), flush=True)
     return 0
 
 
